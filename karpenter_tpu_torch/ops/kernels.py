@@ -1,0 +1,397 @@
+"""Hand-written CUDA kernels of the provisioning feasibility precompute, their
+loader, their wrappers and their plain PyTorch versions.
+
+Three kernels (sources in ``csrc/``, built together into one shared library
+by one nvcc call for sm_90a at first use and loaded through ctypes):
+
+- ``combine_compat``       (K1): template x group compatibility [M, G] and
+  the combined requirement rows [M*G, K, W];
+- ``catalog_feasibility``  (K2): the packed zone bitfield [G, M, T, Wz],
+  int16 pods-per-node [G, M, T] and zone admission [G, M, Z];
+- ``exist_feasibility``    (K3): exist_ok / exist_cap [G, N].
+
+Each wrapper takes the plain version for tensors on the CPU and launches its
+kernel for tensors on a CUDA device, or raises ``KernelError``: there is no
+fallback from a failed build or launch. ``LAUNCHES`` counts kernel launches
+per wrapper.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import feasibility as feas
+from .feasibility import Enc
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+KERNELS = ("combine_compat", "catalog_feasibility", "exist_feasibility")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "combine_compat": [_VP] * 13 + [_I] * 4 + [_VP] * 8,
+    "catalog_feasibility": [_VP] * 20 + [_I] * 12 + [_VP] * 4,
+    "exist_feasibility": [_VP] * 13 + [_I] * 5 + [_VP] * 3,
+}
+
+
+class KernelError(RuntimeError):
+    """Device work of the feasibility kernels failed on a CUDA device: nvcc
+    missing or failing, a refused launch, or a CUDA error surfacing while
+    the kernels' inputs are uploaded or their outputs fetched. Never
+    answered from the CPU: the caller sees it."""
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def device_failures(device: torch.device):
+    """On a CUDA device, any failure inside the block is a KernelError (a
+    kernel's fault can surface asynchronously, at the next copy); on the
+    CPU, failures pass through unchanged."""
+    try:
+        yield
+    except KernelError:
+        raise
+    except Exception as e:  # noqa: BLE001 — re-raised as a device failure
+        if device.type != "cuda":
+            raise
+        raise KernelError(f"device work on {device} failed: {e!r}") from e
+
+
+# --------------------------------------------------------------------------
+# build + load
+# --------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or shutil.which("/usr/local/cuda/bin/nvcc")
+    if path is None:
+        raise KernelError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                          "the feasibility kernels cannot be built")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _lib_path() -> Path:
+    """The library's path, keyed on the flags and every file of csrc/."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfeasibility-{h.hexdigest()[:16]}.so"
+
+
+def build() -> bool:
+    """Build the kernels' library unless this version of the sources is
+    already built; True when this call built it. Raises KernelError with
+    nvcc's output when the build fails."""
+    out = _lib_path()
+    if out.exists():
+        return False
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                        *map(str, _sources())],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise KernelError(f"nvcc failed (rc={r.returncode}):\n{r.stdout}\n"
+                          f"{r.stderr}")
+    os.replace(tmp, out)
+    return True
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            build()
+            lib = ctypes.CDLL(str(_lib_path()))
+            for name, argtypes in _ARGTYPES.items():
+                fn = getattr(lib, f"kt_{name}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.kt_error_string.argtypes = [ctypes.c_int]
+            lib.kt_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+# --------------------------------------------------------------------------
+# wrapper plumbing
+# --------------------------------------------------------------------------
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other
+    device — and for a CUDA tensor when no CUDA runtime is present."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"feasibility kernels take CPU or CUDA tensors, "
+                         f"not {t.device}")
+    if not torch.cuda.is_available():
+        raise KernelError("CUDA tensor given but CUDA is not available")
+    return True
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> int:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return t.data_ptr()
+
+
+def _check_enc(name: str, e: Enc, rows: int, K: int, W: int, device):
+    return [
+        _check(f"{name}.mask", e.mask, torch.int32, (rows, K, W), device),
+        _check(f"{name}.defined", e.defined, torch.bool, (rows, K), device),
+        _check(f"{name}.complement", e.complement, torch.bool, (rows, K),
+               device),
+        _check(f"{name}.exempt", e.exempt, torch.bool, (rows, K), device),
+        _check(f"{name}.gt", e.gt, torch.int32, (rows, K), device),
+        _check(f"{name}.lt", e.lt, torch.int32, (rows, K), device),
+    ]
+
+
+def _launch(name: str, device, *args) -> None:
+    """Launch on the device's current stream; the C launcher returns
+    cudaGetLastError(), so a refused launch (grid, shared memory) raises
+    here rather than vanishing."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"kt_{name}")(*args, stream)
+    if rc != 0:
+        msg = lib.kt_error_string(rc).decode()
+        raise KernelError(f"{name} kernel launch failed: {msg} ({rc})")
+    LAUNCHES[name] += 1
+
+
+# numpy storage dtype of the packed zone words -> the torch dtype of the
+# same width (torch's uint16/uint32 lack most kernels on the CPU)
+_ZONE_STORAGE = {np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.uint16): torch.int16,
+                 np.dtype(np.uint32): torch.int32}
+
+
+def zone_pack_layout(Z: int):
+    """(storage dtype, word count) for the packed zone bitfield — the ONE
+    place this is decided: the kernel packs with it and _output_layout
+    decodes with it, so they can never drift apart."""
+    dtype = np.uint8 if Z <= 8 else (np.uint16 if Z <= 16 else np.uint32)
+    return dtype, -(-Z // np.iinfo(dtype).bits)
+
+
+# --------------------------------------------------------------------------
+# K1 combine_compat
+# --------------------------------------------------------------------------
+
+def combine_compat_plain(template: Enc, group: Enc,
+                         allow_undefined: torch.Tensor
+                         ) -> Tuple[Enc, torch.Tensor]:
+    """(cmb [M*G, ...] m-major, compat_tm [M, G])."""
+    M = template.mask.shape[0]
+    G = group.mask.shape[0]
+    compat_tm = feas.compatible_matrix(template, group, allow_undefined)
+    cmb = feas.combine(Enc(*(x[:, None] for x in template)),
+                       Enc(*(x[None, :] for x in group)))      # [M, G, K, ...]
+    return (Enc(*(x.reshape((M * G,) + x.shape[2:]).contiguous()
+                  for x in cmb)), compat_tm)
+
+
+def combine_compat(template: Enc, group: Enc, allow_undefined: torch.Tensor
+                   ) -> Tuple[Enc, torch.Tensor]:
+    if not _on_cuda(template.mask):
+        return combine_compat_plain(template, group, allow_undefined)
+    dev = template.mask.device
+    M, K, W = template.mask.shape
+    G = group.mask.shape[0]
+    ptrs = (_check_enc("template", template, M, K, W, dev)
+            + _check_enc("group", group, G, K, W, dev)
+            + [_check("allow_undefined", allow_undefined, torch.bool, (K,),
+                      dev)])
+    MG = M * G
+    cmb = Enc(mask=torch.empty((MG, K, W), dtype=torch.int32, device=dev),
+              defined=torch.empty((MG, K), dtype=torch.bool, device=dev),
+              complement=torch.empty((MG, K), dtype=torch.bool, device=dev),
+              exempt=torch.empty((MG, K), dtype=torch.bool, device=dev),
+              gt=torch.empty((MG, K), dtype=torch.int32, device=dev),
+              lt=torch.empty((MG, K), dtype=torch.int32, device=dev))
+    compat_tm = torch.empty((M, G), dtype=torch.bool, device=dev)
+    if MG:
+        _launch("combine_compat", dev, *ptrs, M, G, K, W,
+                *(x.data_ptr() for x in cmb), compat_tm.data_ptr())
+    return cmb, compat_tm
+
+
+# --------------------------------------------------------------------------
+# K2 catalog_feasibility
+# --------------------------------------------------------------------------
+
+def _pack_zone_bits(it_ok_z: torch.Tensor, Z: int) -> torch.Tensor:
+    """[G, M, T, Z] bool -> [G, M, T, Wz] zone words, built in int64 and
+    narrowed to the storage dtype's bit pattern at the end."""
+    np_dtype, Wz = zone_pack_layout(Z)
+    bits = np.iinfo(np_dtype).bits
+    G, M, T = it_ok_z.shape[:3]
+    padded = torch.zeros((G, M, T, Wz * bits), dtype=torch.int64,
+                         device=it_ok_z.device)
+    padded[..., :Z] = it_ok_z.to(torch.int64)
+    weights = torch.ones((), dtype=torch.int64, device=it_ok_z.device) \
+        << torch.arange(bits, dtype=torch.int64, device=it_ok_z.device)
+    words = (padded.reshape(G, M, T, Wz, bits) * weights).sum(dim=-1)
+    if bits > 8:
+        words = torch.where(words >= 2**(bits - 1), words - 2**bits, words)
+    return words.to(_ZONE_STORAGE[np.dtype(np_dtype)])
+
+
+def catalog_feasibility_plain(cmb: Enc, compat_tm: torch.Tensor, it: Enc,
+                              group_req, daemon, alloc, template_its,
+                              off_zone, off_captype, off_available,
+                              zone_values, tol_template, *, zone_key: int,
+                              captype_key: int):
+    """(it_okz_packed [G,M,T,Wz], ppn int16 [G,M,T], zone_adm [G,M,Z])."""
+    M, G = compat_tm.shape
+    T = it.mask.shape[0]
+    Z = zone_values.shape[0]
+    it_compat = feas.intersects_matrix(it, cmb)                # [T, MG]
+    it_compat = it_compat.T.reshape(M, G, T).permute(1, 0, 2)  # [G, M, T]
+    zone_adm = feas.value_bit_ok(cmb.mask[:, zone_key, :],
+                                 zone_values[None, :])[:, 0, :]  # [MG, Z]
+    cap_bit_ok = feas.value_bit_ok(cmb.mask[:, captype_key, :],
+                                   off_captype)                # [MG, T, O]
+    zmatch = off_zone[None, :, :, None] == zone_values[None, None, None, :]
+    off_ok_z = torch.any(off_available[None, :, :, None] & zmatch
+                         & cap_bit_ok[:, :, :, None], dim=2)   # [MG, T, Z]
+    off_ok_z = off_ok_z & zone_adm[:, None, :]
+    ppn = feas.pods_per_node(alloc, daemon, group_req)         # [G, M, T]
+    ok_base = (it_compat
+               & template_its[None, :, :]
+               & tol_template[:, :, None]
+               & compat_tm.T[:, :, None]
+               & (ppn >= 1))
+    it_ok_z = (ok_base[:, :, :, None]
+               & off_ok_z.reshape(M, G, T, Z).permute(1, 0, 2, 3))
+    return (_pack_zone_bits(it_ok_z, Z),
+            ppn.clamp(0, 32767).to(torch.int16),
+            zone_adm.reshape(M, G, Z).permute(1, 0, 2).contiguous())
+
+
+def catalog_feasibility(cmb: Enc, compat_tm: torch.Tensor, it: Enc,
+                        group_req, daemon, alloc, template_its, off_zone,
+                        off_captype, off_available, zone_values, tol_template,
+                        *, zone_key: int, captype_key: int):
+    if not _on_cuda(cmb.mask):
+        return catalog_feasibility_plain(
+            cmb, compat_tm, it, group_req, daemon, alloc, template_its,
+            off_zone, off_captype, off_available, zone_values, tol_template,
+            zone_key=zone_key, captype_key=captype_key)
+    dev = cmb.mask.device
+    M, G = compat_tm.shape
+    MG, K, W = cmb.mask.shape
+    T = it.mask.shape[0]
+    R = group_req.shape[1]
+    O = off_zone.shape[1]
+    Z = zone_values.shape[0]
+    c = _check_enc("cmb", cmb, MG, K, W, dev)
+    i = _check_enc("it", it, T, K, W, dev)
+    ptrs = [c[0], c[1], c[3], c[4], c[5],
+            _check("compat_tm", compat_tm, torch.bool, (M, G), dev),
+            i[0], i[1], i[3], i[4], i[5],
+            _check("group_req", group_req, torch.int32, (G, R), dev),
+            _check("daemon", daemon, torch.int32, (M, R), dev),
+            _check("alloc", alloc, torch.int32, (T, R), dev),
+            _check("template_its", template_its, torch.bool, (M, T), dev),
+            _check("off_zone", off_zone, torch.int32, (T, O), dev),
+            _check("off_captype", off_captype, torch.int32, (T, O), dev),
+            _check("off_available", off_available, torch.bool, (T, O), dev),
+            _check("zone_values", zone_values, torch.int32, (Z,), dev),
+            _check("tol_template", tol_template, torch.bool, (G, M), dev)]
+    np_dtype, Wz = zone_pack_layout(Z)
+    okz = torch.empty((G, M, T, Wz), dtype=_ZONE_STORAGE[np.dtype(np_dtype)],
+                      device=dev)
+    ppn = torch.empty((G, M, T), dtype=torch.int16, device=dev)
+    zone_adm = torch.empty((G, M, Z), dtype=torch.bool, device=dev)
+    if MG:
+        _launch("catalog_feasibility", dev, *ptrs, G, M, T, K, W, R, O, Z,
+                zone_key, captype_key, np.iinfo(np_dtype).bits, Wz,
+                okz.data_ptr(), ppn.data_ptr(), zone_adm.data_ptr())
+    return okz, ppn, zone_adm
+
+
+# --------------------------------------------------------------------------
+# K3 exist_feasibility
+# --------------------------------------------------------------------------
+
+INT32_MAX = 2**31 - 1
+
+
+def exist_feasibility_plain(group: Enc, group_req, exist: Enc, exist_avail,
+                            tol_exist):
+    """(exist_ok bool [G, N], exist_cap int32 [G, N])."""
+    no_undefined = torch.zeros(group.mask.shape[1], dtype=torch.bool,
+                               device=group.mask.device)
+    exist_ok = feas.compatible_matrix(exist, group, no_undefined).T & tol_exist
+    req = group_req[:, None, :]
+    per = torch.where(req > 0,
+                      torch.div(exist_avail[None, :, :], req.clamp_min(1),
+                                rounding_mode="floor"),
+                      INT32_MAX)
+    exist_cap = per.amin(dim=-1).clamp(0, INT32_MAX).to(torch.int32)
+    return exist_ok & (exist_cap >= 1), exist_cap
+
+
+def exist_feasibility(group: Enc, group_req, exist: Enc, exist_avail,
+                      tol_exist):
+    if not _on_cuda(group.mask):
+        return exist_feasibility_plain(group, group_req, exist, exist_avail,
+                                       tol_exist)
+    dev = group.mask.device
+    G, K, W = group.mask.shape
+    N = exist.mask.shape[0]
+    R = group_req.shape[1]
+    g = _check_enc("group", group, G, K, W, dev)
+    e = _check_enc("exist", exist, N, K, W, dev)
+    ptrs = [g[0], g[1], g[3], g[4], g[5],
+            _check("group_req", group_req, torch.int32, (G, R), dev),
+            e[0], e[1], e[3], e[4], e[5],
+            _check("exist_avail", exist_avail, torch.int32, (N, R), dev),
+            _check("tol_exist", tol_exist, torch.bool, (G, N), dev)]
+    exist_ok = torch.empty((G, N), dtype=torch.bool, device=dev)
+    exist_cap = torch.empty((G, N), dtype=torch.int32, device=dev)
+    if G and N:
+        _launch("exist_feasibility", dev, *ptrs, G, N, K, W, R,
+                exist_ok.data_ptr(), exist_cap.data_ptr())
+    return exist_ok, exist_cap

@@ -1,0 +1,123 @@
+"""ops/kernels.py loader and wrappers, on the CPU: the build is keyed on the
+sources and raises with nvcc's own output when nvcc is missing or fails,
+and CPU tensors take the plain versions without counting launches."""
+
+import dataclasses
+import shutil
+import stat
+
+import pytest
+import torch
+
+from karpenter_tpu_torch.ops import binpack, kernels
+
+from karpenter_tpu_torch.provisioning.tensor_scheduler import (
+    SolverCircuitBreaker)
+
+from test_torch_support import PORT, build_problem, mini_workload, scheduler
+
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "$(dirname "$0")/calls"
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+echo built > "$out"
+"""
+
+
+def _script(path, body):
+    path.write_text(body)
+    path.chmod(path.stat().st_mode | stat.S_IXUSR)
+    return str(path)
+
+
+@pytest.fixture
+def scratch_build(tmp_path, monkeypatch):
+    """kernels.build against a copy of the sources and an empty build dir."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    return csrc
+
+
+def test_build_raises_without_nvcc(scratch_build, monkeypatch):
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    with pytest.raises(kernels.KernelError, match="nvcc not found"):
+        kernels.build()
+
+
+def test_build_raises_with_nvcc_output(scratch_build, tmp_path, monkeypatch):
+    nvcc = _script(tmp_path / "nvcc",
+                   "#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 3\n")
+    monkeypatch.setattr(kernels, "_nvcc", lambda: nvcc)
+    with pytest.raises(kernels.KernelError, match="(?s)rc=3.*no sm_90a here"):
+        kernels.build()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_build_is_keyed_on_the_sources(scratch_build, tmp_path, monkeypatch):
+    nvcc = _script(tmp_path / "nvcc", FAKE_NVCC)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: nvcc)
+    assert kernels.build() is True
+    calls = (tmp_path / "calls").read_text().splitlines()
+    assert len(calls) == 1                      # one nvcc call, one library
+    assert all(f"{name}.cu" in calls[0] for name in kernels.KERNELS)
+    assert kernels.build() is False             # cached by hash
+    src = scratch_build / "exist_feasibility.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert kernels.build() is True
+    hdr = scratch_build / "feasibility_common.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    assert kernels.build() is True
+    assert len(list((tmp_path / "build").glob("*.so"))) == 3
+
+
+def test_device_failures_become_kernel_errors_on_cuda_only():
+    with pytest.raises(kernels.KernelError, match="illegal memory access"):
+        with kernels.device_failures(torch.device("cuda")):
+            raise RuntimeError("CUDA error: an illegal memory access")
+    with pytest.raises(ValueError):
+        with kernels.device_failures(torch.device("cpu")):
+            raise ValueError("plain version")
+
+
+def test_kernel_failure_raises_from_default_solve(monkeypatch):
+    """A refused launch reaches the caller of a default solve (no
+    force_tensor): it is not answered by the host oracle and does not count
+    toward the breaker."""
+    pools, its, nodes, pods = mini_workload(PORT)
+    circuit = SolverCircuitBreaker(threshold=1)
+    ts = scheduler(PORT, pools, its, state_nodes=nodes, circuit=circuit)
+
+    def refuse(name, device, *args):
+        raise kernels.KernelError(f"{name} kernel launch failed: refused")
+
+    monkeypatch.setattr(kernels, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(kernels, "_launch", refuse)
+    for _ in range(2):
+        with pytest.raises(kernels.KernelError, match="launch failed"):
+            ts.solve(pods)
+    assert circuit.state == circuit.CLOSED and circuit.allow()
+    assert ts.fallback_reason == ""
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    _, problem = build_problem(PORT, mini_workload(PORT))
+    kernels.reset_launches()
+    tensors = binpack.precompute(problem, device="cpu")
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0)
+    assert tensors.it_ok.any() and tensors.exist_ok.any()
+    assert problem.exist_enc is not None
+
+
+def test_other_devices_are_refused():
+    _, problem = build_problem(PORT, mini_workload(PORT))
+    placer = binpack.ArgPlacer(torch.device("meta"))
+    args, statics = binpack.device_args(
+        dataclasses.replace(problem, device_cache=None), placer)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        binpack.precompute_kernel(*args, **statics)
+    with pytest.raises(ValueError, match="unsupported device"):
+        binpack.precompute(problem, device="meta")

@@ -1,0 +1,196 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+card, at small shapes: every output equal, bit for bit. Needs a CUDA device
+and nvcc; skips without a device. On a machine with a card and without jax
+it runs without the repository's conftest:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from karpenter_tpu_torch.flightrec.record import decision_digest  # noqa: E402
+from karpenter_tpu_torch.ops import binpack, kernels  # noqa: E402
+from karpenter_tpu_torch.ops import feasibility as feas  # noqa: E402
+from karpenter_tpu_torch.ops.encode import EncodedRequirements  # noqa: E402
+
+from test_torch_support import (PORT, assert_tensors_equal,  # noqa: E402
+                                bench_workload, build_problem, mini_workload,
+                                restricted_workload, scheduler)
+
+# the condition is a string so that it is evaluated when each test is set
+# up, never while the module is imported
+pytestmark = pytest.mark.skipif("not torch.cuda.is_available()",
+                                reason="needs a CUDA device and nvcc")
+
+INT_MIN, INT_MAX = -2**31, 2**31 - 1
+
+
+def rand_enc(rng, rows, K, W, device="cuda") -> feas.Enc:
+    """Sparse masks (about two nonzero words of four bits per key), so
+    intersections come out both empty and nonempty; some Gt/Lt bounds."""
+    mask = (rng.integers(0, 16, (rows, K, W))
+            * (rng.random((rows, K, W)) < 2.0 / W)).astype(np.uint32)
+    mask[..., 0] |= (rng.random((rows, K)) < 0.3).astype(np.uint32) << 31
+    gt = np.where(rng.random((rows, K)) < 0.2, rng.integers(-3, 9, (rows, K)),
+                  INT_MIN)
+    lt = np.where(rng.random((rows, K)) < 0.2, rng.integers(-3, 9, (rows, K)),
+                  INT_MAX)
+    e = EncodedRequirements(mask=mask, defined=rng.random((rows, K)) < 0.6,
+                            complement=rng.random((rows, K)) < 0.5,
+                            exempt=rng.random((rows, K)) < 0.2, gt=gt, lt=lt)
+    return feas.to_device(e, device)
+
+
+def i32(a, device="cuda"):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+
+def flags(rng, shape, p, device="cuda"):
+    return torch.from_numpy(rng.random(shape) < p).to(device)
+
+
+def assert_same(kernel_out, plain_out):
+    def flat(out):
+        for x in out:
+            yield from (x if isinstance(x, tuple) else (x,))
+    for a, b in zip(flat(kernel_out), flat(plain_out), strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W", [1, 3, 64])
+def test_combine_compat_matches_plain(W):
+    rng = np.random.default_rng(W)
+    K = 9
+    template, group = rand_enc(rng, 3, K, W), rand_enc(rng, 37, K, W)
+    allow = flags(rng, (K,), 0.4)
+    before = kernels.LAUNCHES["combine_compat"]
+    out = kernels.combine_compat(template, group, allow)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["combine_compat"] == before + 1
+    assert_same(out, kernels.combine_compat_plain(template, group, allow))
+    assert out[1].any() and not out[1].all()
+
+
+@pytest.mark.parametrize("Z", [4, 12, 40])
+def test_catalog_feasibility_matches_plain(Z):
+    rng = np.random.default_rng(Z)
+    K, W, M, G, T, R = 6, 3, 2, 11, 77, 4
+    O = 2 * Z + 1
+    template, group = rand_enc(rng, M, K, W), rand_enc(rng, G, K, W)
+    # dense zone / capacity-type masks so offerings pass often
+    for e in (template, group):
+        e.mask[:, :2, :] |= i32(rng.integers(0, 2**31, (e.mask.shape[0], 2,
+                                                         W)))
+    cmb, compat_tm = kernels.combine_compat_plain(
+        template, group, flags(rng, (K,), 0.5))
+    it = rand_enc(rng, T, K, W)
+    daemon = rng.integers(0, 300, (M, R))
+    daemon[1, 2] = 10**6                      # a daemon no type holds
+    req = rng.integers(0, 500, (G, R))
+    req[0] = 0                                # zero requests
+    args = (cmb, torch.ones_like(compat_tm), it, i32(req), i32(daemon),
+            i32(rng.integers(0, 4000, (T, R))), flags(rng, (M, T), 0.9),
+            i32(rng.integers(-1, Z, (T, O))), i32(rng.integers(-1, 2, (T, O))),
+            flags(rng, (T, O), 0.8), i32(np.arange(Z)),
+            flags(rng, (G, M), 0.9))
+    kw = dict(zone_key=0, captype_key=1)
+    out = kernels.catalog_feasibility(*args, **kw)
+    torch.cuda.synchronize()
+    assert_same(out, kernels.catalog_feasibility_plain(*args, **kw))
+    assert (out[0] != 0).any() and (out[0] == 0).any()
+
+
+def test_exist_feasibility_matches_plain():
+    rng = np.random.default_rng(1)
+    K, W, G, N, R = 9, 64, 13, 300, 3
+    group, exist = rand_enc(rng, G, K, W), rand_enc(rng, N, K, W)
+    req = rng.integers(0, 6, (G, R))
+    avail = rng.integers(-20, 40, (N, R))     # negative: floor != trunc
+    # nodes that define every key with every value, so some pairs pass
+    exist.defined[:100] = True
+    exist.exempt[:100] = False
+    exist.mask[:100] = -1
+    exist.gt[:100] = INT_MIN
+    exist.lt[:100] = INT_MAX
+    # padded rows: undefined keys (all ones) and zero capacity
+    avail[-50:] = 0
+    exist.defined[-50:] = False
+    exist.mask[-50:] = -1
+    args = (group, i32(req), exist, i32(avail), flags(rng, (G, N), 0.9))
+    out = kernels.exist_feasibility(*args)
+    torch.cuda.synchronize()
+    assert_same(out, kernels.exist_feasibility_plain(*args))
+    assert not out[0][:, -50:].any()
+    assert out[0].any()
+
+
+WORKLOADS = {
+    "mini": lambda: mini_workload(PORT),
+    "restricted": lambda: restricted_workload(PORT),
+    "bench_nodes": lambda: bench_workload(PORT, 900, 300, n_nodes=40),
+    "zones_40": lambda: bench_workload(
+        PORT, 180, 30, zones=[f"zone-{i:02d}" for i in range(40)],
+        n_deploys=18),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_precompute_cuda_matches_cpu(name):
+    _, problem = build_problem(PORT, WORKLOADS[name]())
+    kernels.reset_launches()
+    got = binpack.precompute(problem, device="cuda")
+    has_exist = problem.exist_enc is not None
+    assert kernels.LAUNCHES == {"combine_compat": 1, "catalog_feasibility": 1,
+                                "exist_feasibility": int(has_exist)}
+    assert_tensors_equal(binpack.precompute(problem, device="cpu"), got)
+    if has_exist:
+        ok, cap = binpack.exist_delta(problem, device="cuda")
+        np.testing.assert_array_equal(ok, got.exist_ok)
+        np.testing.assert_array_equal(cap, got.exist_cap)
+
+
+def test_solve_on_cuda_matches_cpu():
+    pools, its, nodes, pods = bench_workload(PORT, 900, 300, n_nodes=40)
+    digests = []
+    for device in ("cuda", "cpu"):
+        ts = scheduler(PORT, pools, its, state_nodes=nodes, force_tensor=True,
+                       device=device)
+        results = ts.solve(pods)
+        assert ts.fallback_reason == "" and ts.partition == (len(pods), 0)
+        digests.append(decision_digest(results, pods, ts.fallback_reason,
+                                       ts.partition))
+    assert digests[0] == digests[1]
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    rng = np.random.default_rng(0)
+    template, group = rand_enc(rng, 2, 4, 2), rand_enc(rng, 5, 4, 2)
+    allow = flags(rng, (4,), 0.5)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.combine_compat(template, group, allow.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.combine_compat(template._replace(mask=template.mask.transpose(
+            1, 2).contiguous().transpose(1, 2)), group, allow)
+    with pytest.raises(ValueError, match="on cpu"):
+        kernels.combine_compat(template, group, allow.cpu())
+
+
+def test_refused_launch_raises():
+    """A mask row too wide for one block's shared memory: the launcher's
+    CUDA error surfaces as an exception, not as unwritten outputs."""
+    rng = np.random.default_rng(2)
+    group, exist = rand_enc(rng, 1, 1, 60000), rand_enc(rng, 1, 1, 60000)
+    before = kernels.LAUNCHES["exist_feasibility"]
+    with pytest.raises(kernels.KernelError,
+                       match="exist_feasibility kernel launch failed"):
+        kernels.exist_feasibility(group, i32([[1]]), exist, i32([[1]]),
+                                  flags(rng, (1, 1), 1.0))
+    assert kernels.LAUNCHES["exist_feasibility"] == before

@@ -1,0 +1,289 @@
+"""Shared workload constructors for the JAX-package-versus-port parity tests.
+
+Every constructor takes the package root to build from ("karpenter_tpu" or
+"karpenter_tpu_torch"), so both packages get the identical workload from
+the same seeds. bench_pods, default_pool and existing_nodes rebuild
+chip_smoke.py's north-star workload for either package
+(test_torch_solve_parity.py holds the two equal for the port). The port's schedulers run on the CPU (``device="cpu"``),
+where its kernel wrappers take their plain PyTorch versions.
+"""
+
+import importlib
+from types import SimpleNamespace
+
+import numpy as np
+
+JAX = "karpenter_tpu"
+PORT = "karpenter_tpu_torch"
+ROOTS = (JAX, PORT)
+
+PACK_FIELDS = ("compat_tm", "it_ok", "ppn", "it_ok_z", "zone_adm",
+               "exist_ok", "exist_cap")
+
+
+def pkg(root: str) -> SimpleNamespace:
+    imp = lambda m: importlib.import_module(f"{root}.{m}")  # noqa: E731
+    return SimpleNamespace(
+        labels=imp("api.labels"), objects=imp("api.objects"),
+        nodepool=imp("api.nodepool"), kwok=imp("cloudprovider.kwok"),
+        res=imp("utils.resources"), statenode=imp("state.statenode"),
+        requirement=imp("scheduling.requirement"),
+        requirements=imp("scheduling.requirements"),
+        ts=imp("provisioning.tensor_scheduler"),
+        grouping=imp("provisioning.grouping"),
+        binpack=imp("ops.binpack"), encode=imp("ops.encode"))
+
+
+def scheduler(root: str, nodepools, instance_types, **kw):
+    if root == PORT:
+        kw.setdefault("device", "cpu")
+    return pkg(root).ts.TensorScheduler(nodepools, instance_types, **kw)
+
+
+def nodepool(root: str, name="default", requirements=(), taints=(),
+             limits=None, weight=None):
+    k = pkg(root)
+    return k.nodepool.NodePool(
+        metadata=k.objects.ObjectMeta(name=name),
+        spec=k.nodepool.NodePoolSpec(
+            template=k.nodepool.NodeClaimTemplate(
+                spec=k.nodepool.NodeClaimTemplateSpec(
+                    requirements=list(requirements), taints=list(taints))),
+            limits=k.res.parse_list(limits) if limits else {},
+            weight=weight))
+
+
+def pod(root: str, name: str, cpu="100m", memory="128Mi", labels=None,
+        node_selector=None, tolerations=None, spread=None, pod_affinity=None,
+        pod_anti_affinity=None):
+    o = pkg(root).objects
+    affinity = None
+    if pod_affinity or pod_anti_affinity:
+        affinity = o.Affinity(
+            pod_affinity=(o.PodAffinity(required=list(pod_affinity))
+                          if pod_affinity else None),
+            pod_anti_affinity=(o.PodAffinity(required=list(pod_anti_affinity))
+                               if pod_anti_affinity else None))
+    return o.Pod(
+        metadata=o.ObjectMeta(name=name, namespace="default",
+                              labels=dict(labels or {})),
+        spec=o.PodSpec(node_selector=dict(node_selector or {}),
+                       tolerations=list(tolerations or []),
+                       topology_spread_constraints=list(spread or []),
+                       affinity=affinity),
+        container_requests=[pkg(root).res.parse_list(
+            {"cpu": cpu, "memory": memory})])
+
+
+def state_node(root: str, name: str, nodepool_name: str, cpu: str,
+               memory: str, initialized: bool, zone="test-zone-a"):
+    k = pkg(root)
+    L, o = k.labels, k.objects
+    labels = {L.LABEL_HOSTNAME: name, L.NODEPOOL_LABEL_KEY: nodepool_name,
+              L.LABEL_TOPOLOGY_ZONE: zone,
+              L.CAPACITY_TYPE_LABEL_KEY: "on-demand"}
+    if initialized:
+        labels[L.NODE_INITIALIZED_LABEL_KEY] = "true"
+    alloc = k.res.parse_list({"cpu": cpu, "memory": memory, "pods": "110"})
+    return k.statenode.StateNode(node=o.Node(
+        metadata=o.ObjectMeta(name=name, namespace="", labels=labels),
+        spec=o.NodeSpec(provider_id=f"t://{name}"),
+        status=o.NodeStatus(capacity=dict(alloc), allocatable=alloc)))
+
+
+def mini_workload(root: str, n_deploys=6, pods_per=20, n_its=24):
+    """__graft_entry__._mini_scheduler's workload: two weighted pools (one
+    cpu-limited), existing nodes initialized and not, a zonal-spread mix.
+    Returns (nodepools, instance_types, state_nodes, pods)."""
+    k = pkg(root)
+    its = k.kwok.construct_instance_types()[:n_its]
+    pools = [nodepool(root, "default", weight=10),
+             nodepool(root, "limited", limits={"cpu": "8"}, weight=1)]
+    pods = []
+    for d in range(n_deploys):
+        labels = {"app": f"deploy-{d}"}
+        spread = None
+        if d % 2:
+            spread = [k.objects.TopologySpreadConstraint(
+                topology_key=k.labels.LABEL_TOPOLOGY_ZONE, max_skew=1,
+                label_selector=k.objects.LabelSelector(
+                    match_labels=dict(labels)))]
+        for i in range(pods_per):
+            n = d * pods_per + i
+            pods.append(pod(root, f"graft-pod-{n:04d}", f"{100 * (d + 1)}m",
+                            f"{128 * (d + 1)}Mi", labels, spread=spread))
+    nodes = [state_node(root, "graft-node-init", "default", "4", "8Gi", True),
+             state_node(root, "graft-node-uninit", "default", "2", "4Gi",
+                        False)]
+    return pools, {"default": its, "limited": its}, nodes, pods
+
+
+def restricted_workload(root):
+    """Pools restricted by zone and capacity type, pods pinned by node
+    selectors: zone admission and the capacity-type bit test decide."""
+    k = pkg(root)
+    L, o = k.labels, k.objects
+    req = lambda key, *vals: o.NodeSelectorRequirement(  # noqa: E731
+        key=key, operator="In", values=tuple(vals))
+    pools = [nodepool(root, "spot-ab", weight=10, requirements=[
+                 req(L.LABEL_TOPOLOGY_ZONE, "test-zone-a", "test-zone-b"),
+                 req(L.CAPACITY_TYPE_LABEL_KEY, L.CAPACITY_TYPE_SPOT)]),
+             nodepool(root, "od-cd", requirements=[
+                 req(L.LABEL_TOPOLOGY_ZONE, "test-zone-c", "test-zone-d"),
+                 req(L.CAPACITY_TYPE_LABEL_KEY,
+                     L.CAPACITY_TYPE_ON_DEMAND)])]
+    its = k.kwok.construct_catalog(200)
+    selectors = [{}, {L.LABEL_TOPOLOGY_ZONE: "test-zone-a"},
+                 {L.LABEL_TOPOLOGY_ZONE: "test-zone-d"},
+                 {L.CAPACITY_TYPE_LABEL_KEY: L.CAPACITY_TYPE_ON_DEMAND},
+                 {L.LABEL_TOPOLOGY_ZONE: "test-zone-b",
+                  L.CAPACITY_TYPE_LABEL_KEY: L.CAPACITY_TYPE_ON_DEMAND}]
+    pods = [pod(root, f"r-{d}-{i}", cpu=f"{250 * (d + 1)}m",
+                labels={"app": f"r{d}"}, node_selector=sel)
+            for d, sel in enumerate(selectors) for i in range(6)]
+    return pools, {"spot-ab": its, "od-cd": its}, [], pods
+
+
+_CPUS = ["50m", "100m", "250m", "500m", "1000m"]
+_MEMS = ["64Mi", "128Mi", "256Mi", "512Mi", "1Gi"]
+
+
+def bench_pods(root: str, n_pods: int, n_deploys: int = 120) -> list:
+    """The benchmark pod mix: n_deploys deployments of n_pods // n_deploys
+    identical pods, cycling through nine kinds — generic, zonal spread,
+    hostname spread, hostname affinity, zonal affinity, hostname
+    anti-affinity (the reference's scheduling benchmark mix), minDomains
+    spread, zonal spread + hostname anti-affinity, and a spread whose
+    selector matches other pods."""
+    k = pkg(root)
+    o, L = k.objects, k.labels
+    pods = []
+    n_deploys = min(n_deploys, max(1, n_pods))
+    per = max(1, n_pods // n_deploys)
+    for d in range(n_deploys):
+        labels = {"app": f"deploy-{d}"}
+        sel = o.LabelSelector(match_labels=dict(labels))
+        spread, affinity = [], None
+        kind = d % 9
+        zone_spread = o.TopologySpreadConstraint(
+            topology_key=L.LABEL_TOPOLOGY_ZONE, max_skew=1, label_selector=sel)
+        host_anti = o.Affinity(pod_anti_affinity=o.PodAffinity(required=[
+            o.PodAffinityTerm(topology_key=L.LABEL_HOSTNAME,
+                              label_selector=sel)]))
+        if kind == 1:
+            spread = [zone_spread]
+        elif kind == 2:
+            spread = [o.TopologySpreadConstraint(
+                topology_key=L.LABEL_HOSTNAME, max_skew=1, label_selector=sel)]
+        elif kind == 3:
+            affinity = o.Affinity(pod_affinity=o.PodAffinity(required=[
+                o.PodAffinityTerm(topology_key=L.LABEL_HOSTNAME,
+                                  label_selector=sel)]))
+        elif kind == 4:
+            affinity = o.Affinity(pod_affinity=o.PodAffinity(required=[
+                o.PodAffinityTerm(topology_key=L.LABEL_TOPOLOGY_ZONE,
+                                  label_selector=sel)]))
+        elif kind == 5:
+            affinity = host_anti
+        elif kind == 6:
+            spread = [o.TopologySpreadConstraint(
+                topology_key=L.LABEL_TOPOLOGY_ZONE, max_skew=1, min_domains=4,
+                label_selector=sel)]
+        elif kind == 7:
+            spread, affinity = [zone_spread], host_anti
+        elif kind == 8:
+            spread = [o.TopologySpreadConstraint(
+                topology_key=L.LABEL_TOPOLOGY_ZONE, max_skew=1,
+                label_selector=o.LabelSelector(
+                    match_labels={"app": f"unrelated-{d}"}))]
+        requests = k.res.parse_list({"cpu": _CPUS[d % 5],
+                                     "memory": _MEMS[d % 5]})
+        for i in range(per):
+            pods.append(o.Pod(
+                metadata=o.ObjectMeta(name=f"p-{d}-{i}", namespace="default",
+                                      labels=dict(labels)),
+                spec=o.PodSpec(topology_spread_constraints=list(spread),
+                               affinity=affinity),
+                container_requests=[requests]))
+    return pods
+
+
+def default_pool(root: str):
+    k = pkg(root)
+    return k.nodepool.NodePool(
+        metadata=k.objects.ObjectMeta(name="default"),
+        spec=k.nodepool.NodePoolSpec(template=k.nodepool.NodeClaimTemplate(
+            spec=k.nodepool.NodeClaimTemplateSpec())))
+
+
+def existing_nodes(root: str, catalog, n: int, seed: int = 7) -> list:
+    """n initialized nodes of the default pool: instance types drawn (seeded)
+    from the catalog, spread round-robin over the four kwok zones and both
+    capacity types, each carrying one bound pod that uses 30-90% of its cpu
+    and memory."""
+    import random
+    k = pkg(root)
+    o, L = k.objects, k.labels
+    rng = random.Random(seed)
+    zones = list(k.kwok.KWOK_ZONES)
+    cts = [L.CAPACITY_TYPE_SPOT, L.CAPACITY_TYPE_ON_DEMAND]
+    nodes = []
+    for i in range(n):
+        it = catalog[rng.randrange(len(catalog))]
+        name = f"node-{i:05d}"
+        labels = {key: it.requirements.get(key).values_list()[0]
+                  for key in it.requirements
+                  if len(it.requirements.get(key).values_list()) == 1}
+        labels.update({
+            L.LABEL_HOSTNAME: name,
+            L.NODEPOOL_LABEL_KEY: "default",
+            L.NODE_INITIALIZED_LABEL_KEY: "true",
+            L.LABEL_TOPOLOGY_ZONE: zones[i % len(zones)],
+            L.CAPACITY_TYPE_LABEL_KEY: cts[(i // len(zones)) % 2],
+        })
+        alloc = it.allocatable()
+        sn = k.statenode.StateNode(node=o.Node(
+            metadata=o.ObjectMeta(name=name, namespace="", labels=labels),
+            spec=o.NodeSpec(provider_id=f"smoke://{name}"),
+            status=o.NodeStatus(capacity=dict(it.capacity),
+                                allocatable=dict(alloc))))
+        used = rng.uniform(0.3, 0.9)
+        sn.update_pod(o.Pod(
+            metadata=o.ObjectMeta(name=f"bound-{i:05d}", namespace="default"),
+            spec=o.PodSpec(node_name=name),
+            container_requests=[{
+                k.res.CPU: int(alloc[k.res.CPU] * used),
+                k.res.MEMORY: int(alloc[k.res.MEMORY] * used)}]))
+        nodes.append(sn)
+    return nodes
+
+
+def bench_workload(root: str, n_pods: int, n_its: int, n_nodes: int = 0,
+                   zones=None, n_deploys: int = 120):
+    """chip_smoke's north-star workload at a chosen size: the benchmark pod
+    mix, one default pool, a construct_catalog(n_its) catalog over `zones`,
+    and n_nodes existing nodes."""
+    k = pkg(root)
+    catalog = k.kwok.construct_catalog(n_its, zones=zones)
+    nodes = existing_nodes(root, catalog, n_nodes) if n_nodes else []
+    return ([default_pool(root)], {"default": catalog}, nodes,
+            bench_pods(root, n_pods, n_deploys))
+
+
+def build_problem(root: str, workload):
+    """(scheduler, problem) for a workload: its pods partitioned into groups
+    and encoded by the package's own build_problem."""
+    pools, its, nodes, pods = workload
+    ts = scheduler(root, pools, its, state_nodes=nodes)
+    groups, leftover, reason = pkg(root).grouping.partition_pods(pods)
+    assert groups and not leftover, reason
+    problem, _, _ = ts.build_problem(groups)
+    return ts, problem
+
+
+def assert_tensors_equal(want, got):
+    for name in PACK_FIELDS:
+        a, b = getattr(want, name), getattr(got, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, \
+            (name, a.dtype, b.dtype, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b, err_msg=name)
