@@ -3,17 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written feasibility kernels from ops/csrc (nvcc, sm_90a,
-into build/kernels), holds each kernel against its plain PyTorch version on
-the card at the north-star shapes, then drives the provisioning solve the
-way a user calls it — TensorScheduler(...).solve(pods) on cuda — for 49,920
-pending pods of the benchmark mix against a 2,000-type catalog, cold and
-against 5,000 existing nodes. It checks that the kernels carried the solve
-(launch counts), that nothing fell back to the host oracle, and that the
-decisions equal the same solves run on the CPU through the plain versions.
+Builds the hand-written kernels from ops/csrc (nvcc, sm_90a, into
+build/kernels), holds each kernel against its plain PyTorch version on the
+card at the north-star shapes, then drives the provisioning solve the way a
+user calls it — TensorScheduler(...).solve(pods) on cuda — for 49,920
+pending pods of the benchmark mix against a 2,000-type catalog:
 
-Each phase prints one JSON line. The line before last is the kernel table;
-the last line is {"ok": true, "device": {...}}. Any failure raises and exits
+- cold and against 5,000 existing nodes on one device;
+- against the nodes through a 1x1 solver mesh (``make_solver_mesh()``);
+- pass after pass through a persistent ProblemState, on one device and on
+  an 8-slot mesh over the one card (a 4x2 grid: four exist-row shards), in
+  windows of three kinds: a wobble of the batch, node churn inside one
+  shard's rows, and a rollout (a new deployment plus node churn), each
+  held to a cold solve of the same inputs;
+- cold with the pods/groups-sharded pack (``pack_shards=4``).
+
+It checks that the kernels carried every path (launch counts, zeroed just
+before each path and read just after), that nothing fell back to the host
+oracle, and that the decisions equal the same solves run on the CPU through
+the plain versions, or cold solves on the card.
+
+Each phase prints JSON lines. The line before last is the kernel table; the
+last line is {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without CUDA it exits non-zero before printing a result.
 """
 
@@ -35,6 +46,18 @@ N_NODES = 5_000
 SEED = 7
 REPEATS = 3
 KERNEL_RUNS = 20
+# the warm passes (bench.py's meshchurn and stateplane modes): after a cold
+# pass 0, WINDOW_REPEATS rounds of the three window kinds; every window
+# moves WOBBLE pods between deployments, and node_churn and rollout windows
+# give CHURN_ROWS nodes of one exist shard's rows one more bound pod
+WINDOW_KINDS = ("wobble", "node_churn", "rollout")
+WINDOW_REPEATS = 3
+WOBBLE = 24
+CHURN_ROWS = 64
+CHURN_SHARD = 1
+# the warm mesh: MESH_SLOTS slots on the one card, a 4x2 grid
+MESH_SLOTS = 8
+PACK_SHARDS = 4
 
 # NVIDIA H100 SXM: the HBM rate of the data sheet, and the peak INT32 rate
 # outside the tensor cores of NVIDIA's H100 architecture whitepaper (33.5
@@ -166,6 +189,85 @@ def existing_nodes(catalog, n: int = N_NODES, seed: int = SEED) -> list:
     return nodes
 
 
+def _more_pods(p, names) -> list:
+    """Pods of p's deployment (same labels, spec and requests) named
+    ``names``."""
+    import dataclasses
+    from karpenter_tpu_torch.api import objects as o
+    return [o.Pod(metadata=o.ObjectMeta(name=name, namespace=p.namespace,
+                                        labels=dict(p.metadata.labels)),
+                  spec=dataclasses.replace(p.spec),
+                  container_requests=list(p.container_requests))
+            for name in names]
+
+
+def rollout_deployment(window: int, n_pods: int) -> list:
+    """A new generic deployment of n_pods pods, its requests a shape the
+    benchmark mix does not have."""
+    from karpenter_tpu_torch.api import objects as o
+    from karpenter_tpu_torch.utils import resources as res
+    probe = o.Pod(metadata=o.ObjectMeta(
+        name=f"r-{window}-0", namespace="default",
+        labels={"app": f"rollout-{window}"}),
+        container_requests=[res.parse_list(
+            {"cpu": "750m", "memory": f"{640 + window}Mi"})])
+    return [probe] + _more_pods(probe, [f"r-{window}-{j}"
+                                        for j in range(1, n_pods)])
+
+
+def churn_node_rows(nodes, span, window: int) -> int:
+    """One more bound pod on CHURN_ROWS nodes whose exist rows lie in
+    ``span`` (a node's row is its index); returns the distinct nodes
+    touched."""
+    from karpenter_tpu_torch.api import objects as o
+    from karpenter_tpu_torch.utils import resources as res
+    start, stop = span[0], min(span[1], len(nodes))
+    touched = set()
+    for j in range(CHURN_ROWS):
+        i = start + (window * 131 + j * 977) % (stop - start)
+        sn = nodes[i]
+        sn.update_pod(o.Pod(
+            metadata=o.ObjectMeta(name=f"churn-{window}-{j}",
+                                  namespace="default"),
+            spec=o.PodSpec(node_name=sn.name()),
+            container_requests=[res.parse_list({"cpu": "50m",
+                                                "memory": "64Mi"})]))
+        touched.add(i)
+    return len(touched)
+
+
+def churn_windows(pods, nodes, span):
+    """(pass, window kind, batch, node rows changed) for pass 0 (the base
+    batch) and then WINDOW_REPEATS rounds of WINDOW_KINDS, changing
+    ``nodes`` in place before a node_churn or rollout window. Every window
+    moves WOBBLE pods: three deployments lose WOBBLE // 3 pods each and
+    three others gain as many. Rollout deployments stay once they arrive.
+    Each window is a function of its index alone, so two runs over fresh
+    copies of the nodes see the same inputs."""
+    by_app: dict = {}
+    for p in pods:
+        by_app.setdefault(p.metadata.labels["app"], []).append(p)
+    apps = list(by_app)
+    per = len(pods) // len(apps)
+    step = WOBBLE // 3
+    rollouts: list = []
+    yield 0, "cold", list(pods), 0
+    for i in range(1, 1 + WINDOW_REPEATS * len(WINDOW_KINDS)):
+        kind = WINDOW_KINDS[(i - 1) % len(WINDOW_KINDS)]
+        dirty = churn_node_rows(nodes, span, i) if kind != "wobble" else 0
+        if kind == "rollout":
+            rollouts.extend(rollout_deployment(i, per))
+        batch = dict(by_app)
+        for k in range(3):
+            a = apps[(7 * i + 41 * k) % len(apps)]
+            b = apps[(7 * i + 41 * k + 13) % len(apps)]
+            batch[a] = batch[a][:-step]
+            batch[b] = batch[b] + _more_pods(
+                batch[b][0], [f"{b}-w{i}-{k}-{j}" for j in range(step)])
+        yield i, kind, [p for ps in batch.values() for p in ps] + rollouts, \
+            dirty
+
+
 # --------------------------------------------------------------------------
 # measurement helpers
 # --------------------------------------------------------------------------
@@ -259,13 +361,16 @@ def _errors_by_kind(pods, results) -> dict:
         f"kind {kind[uid]}: {msg}" for uid, msg in results.pod_errors.items()))
 
 
-def _solve(ts_mod, pool, catalog, pods, nodes, device):
+def _solve(ts_mod, pool, catalog, pods, nodes, device, **kw):
+    """One solve as a user makes it, forced onto the tensor path; ``kw``
+    passes mesh=, problem_state= or pack_shards= through. Returns
+    (scheduler, results, seconds)."""
     ts = ts_mod.TensorScheduler([pool], {"default": catalog},
                                 state_nodes=nodes, force_tensor=True,
-                                device=device)
+                                device=device, **kw)
     t0 = time.perf_counter()
     results = ts.solve(pods)
-    if device != "cpu":
+    if ts.device.type == "cuda":
         import torch
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
@@ -274,11 +379,190 @@ def _solve(ts_mod, pool, catalog, pods, nodes, device):
     return ts, results, elapsed
 
 
-# --------------------------------------------------------------------------
-# phases
-# --------------------------------------------------------------------------
+def _top_spans(trace, n: int = 8) -> dict:
+    """The n largest exclusive span times (ms) of a solve's trace."""
+    from karpenter_tpu_torch.obs.tracer import phase_millis
+    ms = phase_millis(trace) if trace else {}
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:n])
+
+
+def _rungs() -> dict:
+    """The device-loss ladder's counters: a solve that stayed on the mesh
+    rung moves none of them."""
+    from karpenter_tpu_torch.metrics.registry import STATE_AUDIT
+    return {oc: STATE_AUDIT.value({"layer": "device", "outcome": oc})
+            for oc in ("killed", "carve", "single")}
+
+
+def resident_exist_equal(ts_mod, pool, catalog, batch, nodes, mesh) -> int:
+    """Hold the sharded state's resident exist-side buffers (what the mesh
+    placer uploaded and row_splice patched in place) to the host rows of
+    the same nodes, encoded cold; returns the devices checked."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch.ops import binpack, feasibility as feas
+    from karpenter_tpu_torch.parallel.mesh import mesh_cache_key
+    from karpenter_tpu_torch.provisioning.grouping import partition_pods
+    ts = ts_mod.TensorScheduler([pool], {"default": catalog},
+                                state_nodes=nodes, force_tensor=True,
+                                mesh=mesh)
+    problem, _, _ = ts.build_problem(partition_pods(batch)[0])
+    key = mesh_cache_key(mesh)
+    slots = [v for k, v in problem.device_cache.items()
+             if k[0] == "exist_shards" and k[2] == key]
+    assert len(slots) == 1, "no resident sharded exist side"
+    e = feas.host_enc(problem.exist_enc)
+    host = [e.mask.view(np.int32), e.defined, e.complement, e.exempt, e.gt,
+            e.lt, np.clip(problem.exist_avail, -binpack.INT32_MAX - 1,
+                          binpack.INT32_MAX).astype(np.int32)]
+    resident = slots[0][1]
+    for leaves in resident.values():
+        for buf, want in zip(leaves, host, strict=True):
+            assert torch.equal(buf.cpu(), torch.from_numpy(want)), \
+                "a resident exist leaf differs from the host rows"
+    return len(resident)
+
+
+#: what the precompute of each window kind must be served by
+_PRECOMPUTE = {"cold": "computed", "wobble": "reused", "node_churn": "delta",
+               "rollout": "computed"}
+
+
+def warm_churn(ts_mod, pool, catalog, pods, nodes, span, device, mesh=None,
+               cold_digests=None, phase="warm_churn"):
+    """Drive churn_windows through one persistent ProblemState (on
+    ``device``, or on ``mesh`` when given) and hold every pass to a cold
+    solve of the same inputs: a fresh scheduler with no state, on the same
+    device or mesh, and to ``cold_digests[pass]`` when given (the
+    single-device cold digests). The last pass (a rollout) runs under the
+    profiler. Prints one line per pass; returns (the cold digests, the
+    per-pass records)."""
+    from karpenter_tpu_torch.flightrec.record import decision_digest
+    from karpenter_tpu_torch.metrics.registry import EXIST_SPLICE_BYTES
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    from karpenter_tpu_torch.ops import kernels
+    from karpenter_tpu_torch.parallel.mesh import PODS_GROUPS_AXIS
+    from karpenter_tpu_torch.provisioning.problem_state import ProblemState
+    ps = ProblemState()
+    kw = dict(mesh=mesh) if mesh is not None else {}
+    dev = None if mesh is not None else device
+    slots = int(mesh.devices.size) if mesh is not None else 1
+    rows = mesh.shape[PODS_GROUPS_AXIS] if mesh is not None else 1
+    digests, records = [], []
+    last_pass = WINDOW_REPEATS * len(WINDOW_KINDS)
+    for i, kind, batch, dirty in churn_windows(pods, nodes, span):
+        before = dict(kernels.LAUNCHES)
+        spliced = {oc: EXIST_SPLICE_BYTES.value({"outcome": oc})
+                   for oc in ("uploaded", "skipped")}
+        out = {}
+        prof = _profile(lambda: out.update(solved=_solve(
+            ts_mod, pool, catalog, batch, nodes, dev, problem_state=ps,
+            **kw))) if i == last_pass else None
+        ts, r, s = out["solved"] if prof else _solve(
+            ts_mod, pool, catalog, batch, nodes, dev, problem_state=ps, **kw)
+        trace = TRACER.last()
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        spliced = {oc: EXIST_SPLICE_BYTES.value({"outcome": oc}) - v
+                   for oc, v in spliced.items()}
+        last = dict(ps.last)
+        _, r_cold, cold_s = _solve(ts_mod, pool, catalog, batch, nodes, dev,
+                                   **kw)
+        cold_trace = TRACER.last()
+        d = decision_digest(r, batch, "", ts.partition)
+        d_cold = decision_digest(r_cold, batch, "", ts.partition)
+        assert d == d_cold, f"{phase} pass {i} ({kind}): warm != cold"
+        if cold_digests is not None:
+            assert d == cold_digests[i], \
+                f"{phase} pass {i} ({kind}): != the single-device cold solve"
+        digests.append(d_cold)
+        # what each window kind must take: the tensors memo whole, the
+        # exist-only delta (K3 alone), or the full precompute (K1-K3 on
+        # every slot, and on a sharded mesh one row_splice of the dirty
+        # span while the clean spans stay resident)
+        assert last["precompute"] == _PRECOMPUTE[kind], (phase, i, last)
+        if i:
+            assert last["encode_kind"] == "delta", (phase, i, last)
+            assert last["node_rows_reencoded"] == dirty, (phase, i, last)
+        want = {k: 0 for k in launched}
+        if kind == "node_churn":
+            want["exist_feasibility"] = 1
+        elif kind in ("cold", "rollout"):
+            want.update(combine_compat=slots, catalog_feasibility=slots,
+                        exist_feasibility=rows)
+            if kind == "rollout" and rows > 1:
+                want["row_splice"] = 1
+        assert launched == want, (phase, i, kind, launched, want)
+        if kind == "rollout" and rows > 1:
+            assert spliced["uploaded"] > 0, (phase, i, spliced)
+            assert spliced["skipped"] == (rows - 1) * spliced["uploaded"], \
+                (phase, i, spliced)
+        resident = None
+        if mesh is not None and rows > 1 and kind in ("cold", "rollout"):
+            resident = resident_exist_equal(ts_mod, pool, catalog, batch,
+                                            nodes, mesh)
+        rec = {"pass": i, "window": kind, "s": s, "cold_s": cold_s,
+               "pods": len(batch), "digest_equals_cold": True,
+               **{k: last[k] for k in ("encode_kind", "node_rows_reencoded",
+                                       "precompute", "warm",
+                                       "warm_restored")},
+               "shard_dirty": last.get("shard_dirty"),
+               "launches": {k: v for k, v in launched.items() if v},
+               "splice_bytes": spliced,
+               "resident_devices_equal": resident,
+               "spans_ms": _top_spans(trace, 16),
+               "cold_spans_ms": _top_spans(cold_trace, 16)}
+        if prof:
+            rec["profile"] = prof
+        _emit({"phase": phase, **rec})
+        records.append(rec)
+    ps.close()
+    return digests, records
+
+
+def _summary(records) -> dict:
+    """Per window kind: the passes' wall seconds beside their cold solves',
+    the medians, the median of the per-pass warm/cold ratios, and the
+    median exclusive ms of each span of the warm passes and the cold
+    ones; the profiled pass counts in none of the medians."""
+    out: dict = {}
+    for kind in ("cold",) + WINDOW_KINDS:
+        recs = [r for r in records if r["window"] == kind
+                and "profile" not in r]
+
+        def spans(key):
+            names = {n for r in recs for n in r[key]}
+            return {n: statistics.median(r[key].get(n, 0.0) for r in recs)
+                    for n in sorted(names)}
+
+        out[kind] = {
+            "s": [r["s"] for r in records if r["window"] == kind],
+            "cold_s": [r["cold_s"] for r in records if r["window"] == kind],
+            "s_median": statistics.median(r["s"] for r in recs),
+            "cold_s_median": statistics.median(r["cold_s"] for r in recs),
+            "ratio_median": statistics.median(r["s"] / r["cold_s"]
+                                              for r in recs),
+            "spans_ms_median": spans("spans_ms"),
+            "cold_spans_ms_median": spans("cold_spans_ms")}
+    return out
+
+
+def _random_rows(rng, like, rows: int):
+    """A CPU tensor of ``rows`` random rows shaped and typed like ``like``'s."""
+    import numpy as np
+    import torch
+    shape = (rows,) + tuple(like.shape[1:])
+    if like.dtype == torch.bool:
+        return torch.from_numpy(rng.random(shape) < 0.5)
+    return torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, shape,
+                                         dtype=np.int64).astype(np.int32))
+
+
+#: the feasibility kernels of the precompute (K1-K3)
+FEASIBILITY = ("combine_compat", "catalog_feasibility", "exist_feasibility")
+
 
 def main() -> None:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -290,6 +574,9 @@ def main() -> None:
     from karpenter_tpu_torch.provisioning import tensor_scheduler as ts_mod
     from karpenter_tpu_torch.provisioning.grouping import partition_pods
     from karpenter_tpu_torch.cloudprovider.kwok import construct_catalog
+    from karpenter_tpu_torch.ops import encode as enc
+    from karpenter_tpu_torch.parallel.mesh import (PODS_GROUPS_AXIS,
+                                                   make_solver_mesh)
 
     # 1. device
     smi = subprocess.run(
@@ -385,13 +672,60 @@ def main() -> None:
             "device_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": c["bytes_in"] + _nbytes(out_k), "ops": c["ops"],
             "library_ms": None}
+
+    # B3 row_splice: the rows of one exist shard of the warm mesh (N / 4 of
+    # the padded node axis) in the seven resident leaves, from host blocks.
+    # "ms" is the wrapper (pinned staging, one upload, one launch),
+    # "kernel_ms" the launch alone on staged rows; the plain version copies
+    # each host block into its slice, the library call each device block
+    mesh8 = make_solver_mesh(devices=[dev] * MESH_SLOTS)
+    span = enc.shard_spans(N, mesh8.shape[PODS_GROUPS_AXIS])[CHURN_SHARD]
+    leaves = list(exist) + [exist_avail]
+    rng = np.random.default_rng(SEED)
+    blocks = [_random_rows(rng, x, span[1] - span[0]) for x in leaves]
+    bufs_k = [x.clone() for x in leaves]
+    bufs_p = [x.clone() for x in leaves]
+    kernels.row_splice(bufs_k, blocks, span[0])
+    kernels.row_splice_plain(bufs_p, blocks, span[0])
+    torch.cuda.synchronize()
+    equal, err = _compare(bufs_k, bufs_p)
+    assert equal, f"row_splice: kernel and plain version disagree (max abs " \
+                  f"err {err})"
+    staged = kernels.stage_rows(blocks, dev)
+    dev_blocks = [b.to(dev) for b in blocks]
+    span_bytes = _nbytes(*blocks)
+    bound_ms, bound_by = _bound(2 * span_bytes, 0)
+
+    def library():
+        for buf, b in zip(bufs_p, dev_blocks):
+            buf[span[0]:span[1]].copy_(b)
+
+    prof = _profile(lambda: kernels.row_splice(bufs_k, blocks, span[0]))
+    ms, n = next((v for k, v in prof["device_ms_by_name"].items()
+                  if k.startswith("row_splice_kernel")), (None, 0))
+    rows["row_splice"] = {
+        "name": "row_splice", "route": "cuda",
+        "source": "karpenter_tpu_torch/ops/csrc/row_splice.cu",
+        "replaces": "karpenter_tpu/parallel/mesh.py:264", "launches": None,
+        "max_abs_err": err, "equal": equal,
+        "ms": _time_ms(lambda: kernels.row_splice(bufs_k, blocks, span[0])),
+        "kernel_ms": _time_ms(
+            lambda: kernels.row_splice_staged(bufs_k, staged, span[0])),
+        "plain_ms": _time_ms(
+            lambda: kernels.row_splice_plain(bufs_p, blocks, span[0])),
+        "device_ms": ms / n if n else None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": 2 * span_bytes, "ops": 0, "rows": span[1] - span[0],
+        "library_ms": _time_ms(library)}
     _emit({"phase": "kernels_vs_plain", "kernels": [
         {"name": r["name"], "replaces": r["replaces"],
          "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
          "equal": r["equal"]} for r in rows.values()]})
 
-    # 4 + 5. the main path: cold solve, then against existing nodes; the
-    # launch counts are zeroed just before and read just after
+    # 4 + 5. the main path: cold solve, then against existing nodes. Each
+    # path below zeroes the launch counts just before it and reads them
+    # just after
+    paths = {}
     kernels.reset_launches()
     runs = {}
     for label, state in (("cold", ()), ("existing_nodes", nodes)):
@@ -413,11 +747,7 @@ def main() -> None:
                "errors": len(results.pod_errors),
                "errors_by_kind": _errors_by_kind(pods, results),
                "phases_ms": phase_millis(trace) if trace else {}})
-    launches = dict(kernels.LAUNCHES)
-    _emit({"phase": "main_path_launches", **launches})
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the main path"
-        rows[name]["launches"] = n
+    paths["solve"] = dict(kernels.LAUNCHES)
 
     # device time and idle share of one solve of each kind, from a trace;
     # each kernel's device time per launch from the solve with nodes, which
@@ -426,7 +756,8 @@ def main() -> None:
         prof = _profile(
             lambda: _solve(ts_mod, pool, catalog, pods, state, DEVICE))
         _emit({"phase": f"profile_{label}", **prof})
-    for name, row in rows.items():
+    for name in FEASIBILITY:
+        row = rows[name]
         ms, n = next((v for k, v in prof["device_ms_by_name"].items()
                       if k.startswith(f"{name}_kernel")), (None, 0))
         row["device_ms"] = ms / n if n else None
@@ -452,7 +783,101 @@ def main() -> None:
                           "cpu_solve_s": cpu_s}
     _emit({"phase": "decisions", **digests})
 
-    # 7. the kernel table and the verdict
+    # 7. the solve against the nodes through a 1x1 mesh (every CUDA device
+    # of the machine: its one card) and through the 8-slot mesh over the
+    # card: the single-device decisions, on the ladder's "mesh" rung; the
+    # 8-slot solve once more under the profiler (K1 + K2 on every slot, K3
+    # once per pods_groups row)
+    for label, m in (("1x1", make_solver_mesh()), ("4x2", mesh8)):
+        rungs = _rungs()
+        kernels.reset_launches()
+        _solve(ts_mod, pool, catalog, pods, nodes, None, mesh=m)  # warm-up
+        best = None
+        for _ in range(REPEATS - 1):
+            _, results, elapsed = _solve(ts_mod, pool, catalog, pods, nodes,
+                                         None, mesh=m)
+            if best is None or elapsed < best[0]:
+                best = (elapsed, TRACER.last(), results)
+        paths[f"solve_mesh_{label}"] = dict(kernels.LAUNCHES)
+        assert _rungs() == rungs, f"left the mesh rung: {_rungs()}"
+        same = decision_digest(best[2], pods, "", (len(pods), 0)) == \
+            decision_digest(runs["existing_nodes"], pods, "", (len(pods), 0))
+        assert same, f"the {label} mesh solve differs from the single-device " \
+                     "solve"
+        _emit({"phase": f"solve_mesh_{label}", "mesh": repr(m),
+               "best_s": best[0], "pods_per_s": len(pods) / best[0],
+               "digest_equals_single": same, "rung": "mesh",
+               "spans_ms": _top_spans(best[1])})
+    _emit({"phase": "profile_mesh_4x2", **_profile(
+        lambda: _solve(ts_mod, pool, catalog, pods, nodes, None,
+                       mesh=mesh8))})
+
+    # 8. warm passes through one ProblemState on the card, each held to a
+    # cold solve of the same inputs; the nodes are a fresh copy that the
+    # windows change in place
+    kernels.reset_launches()
+    cold_digests, recs = warm_churn(ts_mod, pool, catalog, pods,
+                                    existing_nodes(catalog), span, DEVICE)
+    paths["warm_churn"] = dict(kernels.LAUNCHES)
+    _emit({"phase": "warm_churn_summary", "by_window": _summary(recs)})
+
+    # 9. the same windows through the sharded ProblemState on an 8-slot
+    # mesh over the card (4x2: four exist shards, so a rollout splices the
+    # churned shard's rows and leaves three spans resident), held to a cold
+    # mesh solve and to the single-device cold solve of each pass
+    rungs = _rungs()
+    kernels.reset_launches()
+    _, recs = warm_churn(ts_mod, pool, catalog, pods,
+                         existing_nodes(catalog), span, DEVICE, mesh=mesh8,
+                         cold_digests=cold_digests, phase="warm_churn_mesh")
+    paths["warm_churn_mesh"] = dict(kernels.LAUNCHES)
+    assert _rungs() == rungs, f"left the mesh rung: {_rungs()}"
+    _emit({"phase": "warm_churn_mesh_summary", "mesh": repr(mesh8),
+           "by_window": _summary(recs)})
+
+    # 10. the cold solve with the pods/groups-sharded pack: the decisions
+    # of the same solve through the plain versions on the CPU, and the pod
+    # errors of the sequential pack (mesh.sharded_pack's contract)
+    kernels.reset_launches()
+    _solve(ts_mod, pool, catalog, pods, (), DEVICE,
+           pack_shards=PACK_SHARDS)  # warm-up
+    _, sharded, elapsed = _solve(ts_mod, pool, catalog, pods, (), DEVICE,
+                                 pack_shards=PACK_SHARDS)
+    trace = TRACER.last()
+    paths["solve_sharded_pack"] = dict(kernels.LAUNCHES)
+    assert "pack.shards" in phase_millis(trace), "the pack was not sharded"
+    _, sharded_cpu, cpu_s = _solve(ts_mod, pool, catalog, pods, (), "cpu",
+                                   pack_shards=PACK_SHARDS)
+    same = decision_digest(sharded, pods, "", (len(pods), 0)) == \
+        decision_digest(sharded_cpu, pods, "", (len(pods), 0))
+    assert same, "sharded pack: cuda and cpu decisions differ"
+    assert sharded.pod_errors == runs["cold"].pod_errors, \
+        "sharded pack: pod errors differ from the sequential pack's"
+    _emit({"phase": "solve_sharded_pack", "shards": PACK_SHARDS,
+           "s": elapsed, "cpu_solve_s": cpu_s, "digest_equals_cpu": same,
+           "errors": len(sharded.pod_errors),
+           "nodes_launched": len(sharded.new_nodeclaims),
+           "sequential_nodes_launched": len(runs["cold"].new_nodeclaims),
+           "spans_ms": _top_spans(trace)})
+
+    # 11. every path launched the kernels it runs; the table counts them all
+    expect = {"solve": FEASIBILITY, "solve_mesh_1x1": FEASIBILITY,
+              "solve_mesh_4x2": FEASIBILITY,
+              "warm_churn": FEASIBILITY,
+              "warm_churn_mesh": FEASIBILITY + ("row_splice",),
+              "solve_sharded_pack": FEASIBILITY[:2]}
+    for path, names in expect.items():
+        for name in names:
+            assert paths[path][name] > 0, \
+                f"{name} was never launched on the path {path}"
+    total = {name: sum(p[name] for p in paths.values())
+             for name in kernels.KERNELS}
+    _emit({"phase": "main_path_launches", **total, "paths": paths})
+    for name, n in total.items():
+        assert n > 0, f"{name} was never launched on the main path"
+        rows[name]["launches"] = n
+
+    # 12. the kernel table and the verdict
     _emit({"kernels": list(rows.values())})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

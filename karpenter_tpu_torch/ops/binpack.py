@@ -143,6 +143,13 @@ class PackProblem:
     # skip the [N, ...] host->device upload exactly like the catalog side.
     # None (the default) preserves per-call uploads.
     exist_token: Optional[tuple] = None
+    # per-shard content tokens of the existing-node rows (sharded
+    # ProblemState over the mesh pods_groups axis): tuple of S tokens, one
+    # per contiguous Np/S row span (encode.shard_spans). When set, the mesh
+    # placer's put_exist_side re-uploads ONLY the spans whose token changed
+    # (a node revision bump splices its shard's rows, not all N). None
+    # keeps the whole-side exist_token cache behaviour.
+    exist_shard_tokens: Optional[tuple] = None
 
 
 @dataclass
@@ -248,7 +255,11 @@ class ArgPlacer:
     """Placement policy for device_args uploads onto one device: the
     catalog side is cached in device_cache under a slot named for the
     device, and the exist side under its content token plus the device's
-    identity."""
+    identity. A mesh placer (parallel/mesh._MeshPlacer) overrides the
+    hooks: group-side arrays stay host numpy (each mesh slot uploads its
+    own block), the catalog side is uploaded once per column block to each
+    slot's device, and the exist side once per distinct device, with dirty
+    row spans spliced in place. One device_args serves both paths."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -265,6 +276,16 @@ class ArgPlacer:
 
     def array(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def put_it_side(self, it_side):
+        """Final placement for the 7 catalog-side leaves (already through
+        enc/i32/array). The single-device placer leaves them as they are."""
+        return it_side
+
+    def put_exist_side(self, exist, exist_avail, p=None):
+        """``p`` is the (padded) problem: a mesh placer reads its
+        exist_shard_tokens to re-upload only dirty per-shard row blocks."""
+        return exist, exist_avail
 
     def device_token(self) -> tuple:
         """Placement identity folded into the cached exist-upload's token:
@@ -304,7 +325,8 @@ def _device_args(p: PackProblem, placer: ArgPlacer):
         if ex_slot is not None and ex_slot[0] == ex_tok:
             exist, exist_avail = ex_slot[1]
         else:
-            exist, exist_avail = dev(p.exist_enc), i32(p.exist_avail)
+            exist, exist_avail = placer.put_exist_side(
+                dev(p.exist_enc), i32(p.exist_avail), p=p)
             if p.device_cache is not None and ex_tok is not None:
                 p.device_cache[ex_key] = (ex_tok, (exist, exist_avail))
         tol_exist = arr(p.tol_exist)
@@ -316,9 +338,10 @@ def _device_args(p: PackProblem, placer: ArgPlacer):
     if it_side is not None and not placer.it_side_valid(p, it_side):
         it_side = None
     if it_side is None:
-        it_side = (dev(p.it_enc), i32(p.it_alloc), arr(p.off_zone),
-                   arr(p.off_captype), arr(p.off_available),
-                   arr(p.zone_values), arr(p.allow_undefined))
+        it_side = placer.put_it_side(
+            (dev(p.it_enc), i32(p.it_alloc), arr(p.off_zone),
+             arr(p.off_captype), arr(p.off_available),
+             arr(p.zone_values), arr(p.allow_undefined)))
         if cache is not None:
             cache[it_key] = it_side
     (it_enc_d, it_alloc_d, off_zone_d, off_captype_d, off_avail_d,

@@ -1,14 +1,16 @@
-"""Hand-written CUDA kernels of the provisioning feasibility precompute, their
-loader, their wrappers and their plain PyTorch versions.
+"""Hand-written CUDA kernels of the provisioning solve, their loader, their
+wrappers and their plain PyTorch versions.
 
-Three kernels (sources in ``csrc/``, built together into one shared library
+Four kernels (sources in ``csrc/``, built together into one shared library
 by one nvcc call for sm_90a at first use and loaded through ctypes):
 
 - ``combine_compat``       (K1): template x group compatibility [M, G] and
   the combined requirement rows [M*G, K, W];
 - ``catalog_feasibility``  (K2): the packed zone bitfield [G, M, T, Wz],
   int16 pods-per-node [G, M, T] and zone admission [G, M, Z];
-- ``exist_feasibility``    (K3): exist_ok / exist_cap [G, N].
+- ``exist_feasibility``    (K3): exist_ok / exist_cap [G, N];
+- ``row_splice``           (B3): a dirty row span of the resident
+  existing-node buffers, overwritten in place from one staged upload.
 
 Each wrapper takes the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device, or raises ``KernelError``: there is no
@@ -38,7 +40,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("combine_compat", "catalog_feasibility", "exist_feasibility")
+KERNELS = ("combine_compat", "catalog_feasibility", "exist_feasibility",
+           "row_splice")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -51,11 +54,12 @@ _ARGTYPES = {
     "combine_compat": [_VP] * 13 + [_I] * 4 + [_VP] * 8,
     "catalog_feasibility": [_VP] * 20 + [_I] * 12 + [_VP] * 4,
     "exist_feasibility": [_VP] * 13 + [_I] * 5 + [_VP] * 3,
+    "row_splice": [_VP] * 3 + [_I] + [_VP],
 }
 
 
 class KernelError(RuntimeError):
-    """Device work of the feasibility kernels failed on a CUDA device: nvcc
+    """Device work of the kernels failed on a CUDA device: nvcc
     missing or failing, a refused launch, or a CUDA error surfacing while
     the kernels' inputs are uploaded or their outputs fetched. Never
     answered from the CPU: the caller sees it."""
@@ -395,3 +399,110 @@ def exist_feasibility(group: Enc, group_req, exist: Enc, exist_avail,
         _launch("exist_feasibility", dev, *ptrs, G, N, K, W, R,
                 exist_ok.data_ptr(), exist_cap.data_ptr())
     return exist_ok, exist_cap
+
+
+# --------------------------------------------------------------------------
+# B3 row_splice
+# --------------------------------------------------------------------------
+
+#: most leaves one launch splices (the kernel's table size)
+ROW_SPLICE_MAX_LEAVES = 16
+#: staging offsets are rounded up to this, so a leaf's source agrees with an
+#: aligned destination modulo 16 and the kernel takes its vector path
+_STAGE_ALIGN = 16
+
+
+def _host_block(block, buf: torch.Tensor) -> torch.Tensor:
+    """A CPU tensor of ``buf``'s dtype over the rows of ``block`` (a numpy
+    array or a CPU tensor; uint32 masks are read as their int32 bits)."""
+    if isinstance(block, np.ndarray):
+        block = np.ascontiguousarray(block)
+        if block.dtype == np.uint32:
+            block = block.view(np.int32)
+        block = torch.from_numpy(block)
+    if block.device.type != "cpu":
+        raise ValueError(f"row_splice: block on {block.device}, expected "
+                         "host memory")
+    if block.dtype != buf.dtype:
+        raise ValueError(f"row_splice: block dtype {block.dtype}, buffer "
+                         f"dtype {buf.dtype}")
+    if tuple(block.shape[1:]) != tuple(buf.shape[1:]):
+        raise ValueError(f"row_splice: block rows {tuple(block.shape[1:])}, "
+                         f"buffer rows {tuple(buf.shape[1:])}")
+    return block.contiguous()
+
+
+def row_splice_plain(bufs, blocks, start: int) -> None:
+    """``buf[start:start + rows].copy_(block)`` for each leaf, in place."""
+    for buf, block in zip(bufs, blocks):
+        buf[start:start + block.shape[0]].copy_(block)
+
+
+def row_splice(bufs, blocks, start: int) -> None:
+    """Overwrite rows [start, start + rows) of every resident tensor in
+    ``bufs`` with the matching host block, in place. On the CPU that is
+    the plain version; on CUDA the blocks are written back to back into one
+    pinned staging buffer, copied to the device with one non-blocking copy
+    and spliced by one kernel launch."""
+    bufs = list(bufs)
+    if len(bufs) != len(blocks):
+        raise ValueError(f"row_splice: {len(bufs)} buffers, "
+                         f"{len(blocks)} blocks")
+    if not bufs:
+        return
+    host = [_host_block(b, buf) for buf, b in zip(bufs, blocks)]
+    rows = host[0].shape[0]
+    dev = bufs[0].device
+    for buf, h in zip(bufs, host):
+        if buf.device != dev:
+            raise ValueError(f"row_splice: buffers on {buf.device} and {dev}")
+        if not buf.is_contiguous():
+            raise ValueError("row_splice: buffer not contiguous")
+        if h.shape[0] != rows or start < 0 or start + rows > buf.shape[0]:
+            raise ValueError(f"row_splice: rows [{start}, {start + h.shape[0]})"
+                             f" outside a buffer of {buf.shape[0]}")
+    if not _on_cuda(bufs[0]):
+        row_splice_plain(bufs, host, start)
+        return
+    if len(bufs) > ROW_SPLICE_MAX_LEAVES:
+        raise ValueError(f"row_splice: {len(bufs)} leaves, at most "
+                         f"{ROW_SPLICE_MAX_LEAVES}")
+    if rows == 0:
+        return
+    row_splice_staged(bufs, stage_rows(host, dev), start)
+
+
+def stage_rows(host, device: torch.device):
+    """The host blocks written back to back (each at a 16-byte offset) into
+    one pinned buffer and copied to ``device`` with one non-blocking copy:
+    (device staging tensor, byte offsets, byte counts)."""
+    offsets, nbytes = [], []
+    total = 0
+    for h in host:
+        total = -(-total // _STAGE_ALIGN) * _STAGE_ALIGN
+        offsets.append(total)
+        nbytes.append(h.numel() * h.element_size())
+        total += nbytes[-1]
+    staging = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    stage_np = staging.numpy()
+    for h, off in zip(host, offsets):
+        raw = h.numpy().reshape(-1).view(np.uint8)
+        stage_np[off:off + raw.size] = raw
+    with torch.cuda.device(device):
+        dstage = torch.empty(total, dtype=torch.uint8, device=device)
+        dstage.copy_(staging, non_blocking=True)
+    return dstage, offsets, nbytes
+
+
+def row_splice_staged(bufs, staged, start: int) -> None:
+    """One launch of the kernel: the staged leaves (stage_rows) into rows
+    from ``start`` of every buffer, in place."""
+    dstage, offsets, nbytes = staged
+    n = len(bufs)
+    dst = (ctypes.c_ulonglong * n)(*(
+        buf.data_ptr() + start * buf.stride(0) * buf.element_size()
+        for buf in bufs))
+    src = (ctypes.c_ulonglong * n)(*(dstage.data_ptr() + off
+                                     for off in offsets))
+    count = (ctypes.c_ulonglong * n)(*nbytes)
+    _launch("row_splice", dstage.device, dst, src, count, n)

@@ -1,4 +1,4 @@
-"""GPU-accelerated scheduler front end (single device).
+"""GPU-accelerated scheduler front end.
 
 Builds the encoded PackProblem from the same inputs the host Scheduler takes,
 runs the device feasibility precompute + grouped packer (ops/binpack.py), and
@@ -8,9 +8,10 @@ the tensor kernel or when packing left relaxable pods unscheduled — so observa
 semantics always match the reference (scheduler.go) either way.
 
 The precompute runs on ``device`` (default ``cuda``; ``"cpu"`` runs the
-kernels' plain PyTorch versions). The multi-device mesh, the sharded pack,
-the persistent cross-pass ProblemState and the flight recorder are not
-carried by this package: asking for any of them raises NotImplementedError.
+kernels' plain PyTorch versions), or once per slot of a ``mesh``
+(parallel/mesh.py). The persistent cross-pass ProblemState and the sharded
+pack are carried as in the JAX package; the flight recorder is not, and
+asking for it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,12 +34,20 @@ from ..scheduling.requirement import IN, Requirement
 from ..scheduling.requirements import (ALLOW_UNDEFINED_WELL_KNOWN, Requirements,
                                        label_requirements)
 from ..utils import resources as res
-from .grouping import PodGroup, partition_pods
+from .grouping import PodGroup, group_pods, partition_pods
 # claim_name_seq: ONE process-wide claim-name sequence shared with the host
 # oracle (independent counters minted colliding claim names)
 from .scheduler import (MAX_INSTANCE_TYPES, NodeClaimTemplate, Results, Scheduler,
                         _daemon_overhead, _req_to_selector, claim_name_seq)
 from .topology import ClusterView, Topology
+
+
+def _single_process() -> bool:
+    """Gate for the exist-only delta kernel (binpack.exist_delta): it runs
+    over the full node axis on one device, which a multi-process fleet
+    can't serve. The port has no multi-process mesh, so this always
+    holds."""
+    return True
 
 
 def _pow2_bucket(n: int, minimum: int) -> int:
@@ -285,18 +294,13 @@ class TensorScheduler:
                  circuit: Optional[SolverCircuitBreaker] = None,
                  unavailable=None, problem_state=None,
                  pack_shards: int = 0, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TensorScheduler: the multi-device mesh is not ported")
-        if pack_shards > 1:
-            raise NotImplementedError(
-                "TensorScheduler: the sharded pack is not ported")
-        if problem_state is not None:
-            raise NotImplementedError(
-                "TensorScheduler: the persistent ProblemState is not ported")
         # where the feasibility precompute runs: cuda unless the caller
-        # names another device; raises here when CUDA is asked for and
-        # absent, before any solve could fall back to the host oracle
+        # names another device (with a mesh: the device of its first slot,
+        # which also runs the exist-only delta); raises here when CUDA is
+        # asked for and absent, before any solve could fall back to the
+        # host oracle
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0].device
         self.device = binpack.resolve_device(device)
         self.nodepools = list(nodepools)
         self.instance_types = instance_types
@@ -305,6 +309,18 @@ class TensorScheduler:
         self.cluster = cluster or ClusterView()
         self.initial_zone_counts = initial_zone_counts  # callable (group, zones)->counts
         self.force_tensor = force_tensor
+        # optional parallel.mesh.Mesh: run the feasibility precompute once
+        # per mesh slot (parallel/mesh.py) instead of on one device
+        self.mesh = mesh
+        # > 1: pods/groups-sharded HIERARCHICAL pack (parallel/mesh.
+        # sharded_pack, DEVIATIONS 22) — per-shard packs + cross-shard
+        # remainder reconcile. Opt-in: decisions may differ from the
+        # sequential pack in remainder-node composition (pod errors stay
+        # exact), so the default 0 keeps every caller on the oracle-exact
+        # sequential pack. Engages only when the problem passes the
+        # pack_shardable() gate; a ProblemState warm start composes (the
+        # pack carries per-shard seeds + a reconcile memo on the WarmStart).
+        self.pack_shards = pack_shards
         # precomputed catalog cache key (_catalog_cache_key of the union
         # catalog): ONLY valid when the caller guarantees the catalog is
         # never mutated in place
@@ -359,6 +375,26 @@ class TensorScheduler:
         # is tiny). Provisioning constructs a scheduler per solve, so the
         # memo is exactly one-pass-scoped there too.
         self._exist_memo: dict = {}
+        # provisioning.problem_state.ProblemState: the persistent cross-pass
+        # delta cache (node rows, group rows, topology-count memo, warm-pack
+        # seed). None (the default) keeps the self-contained cold path —
+        # disruption simulation probes and ad-hoc schedulers never share it.
+        self.problem_state = problem_state
+        if problem_state is not None:
+            # bind the state to this scheduler's mesh/shard identity: a
+            # flip (mesh recreated over other devices, shard count change,
+            # mesh dropped) drops the per-shard seeds + reconcile memo so
+            # a mesh<->single-device swap in one process can never replay
+            # artifacts recorded under the other carve
+            if mesh is not None:
+                from ..parallel.mesh import (PODS_GROUPS_AXIS,
+                                             mesh_cache_key)
+                problem_state.attach_mesh(
+                    mesh_cache_key(mesh),
+                    int(dict(mesh.shape).get(PODS_GROUPS_AXIS, 0)),
+                    pack_shards)
+            else:
+                problem_state.attach_mesh(None, 0, pack_shards)
 
     @property
     def flight_recorder(self):
@@ -393,6 +429,8 @@ class TensorScheduler:
         self._breakdown = []
         self._tensor_seconds = 0.0
         self._host_seconds = 0.0
+        if self.problem_state is not None:
+            self.problem_state.begin_solve()
         # port eligibility needs existing-node usage: a port occupied on a
         # live node makes its pods CONFLICTED (capped groups with per-node
         # exclusion) instead of constraint-free
@@ -431,6 +469,14 @@ class TensorScheduler:
             # moved to the CPU, and the breaker does not count it
             raise
         except Exception as e:  # noqa: BLE001 — host-side degradation
+            from ..parallel.mesh import DeviceLadderExhausted
+            if isinstance(e, DeviceLadderExhausted):
+                # every ladder rung is gone: each lost device already fed
+                # its OWN breaker, so the global one must not double-trip
+                # — serve the host oracle and let the next pass's
+                # half-open probes re-test the fleet
+                return self._host_solve(pods,
+                                        f"device ladder exhausted: {e}")
             self.circuit.record_failure()
             if self.force_tensor:
                 raise
@@ -657,7 +703,13 @@ class TensorScheduler:
     # -- tensor path ----------------------------------------------------------
 
     def precompute(self, problem) -> binpack.PackTensors:
-        """Device feasibility precompute on this scheduler's device."""
+        """Device feasibility precompute, run once per slot of self.mesh
+        when set (behind the device-loss degradation ladder: a device lost
+        mid-dispatch re-places the solve on the surviving carve instead of
+        failing the pass), else on this scheduler's device."""
+        if self.mesh is not None:
+            from ..parallel.mesh import resilient_precompute
+            return resilient_precompute(problem, self.mesh)
         return binpack.precompute(problem, device=self.device)
 
     def build_problem(self, groups: List[PodGroup]):
@@ -724,14 +776,24 @@ class TensorScheduler:
         if masked is not None:
             off_available, off_price, it_price, device_cache = masked
 
-        with TRACER.span("encode.groups", groups=G):
-            group_enc = enc.stack_encoded(
-                [enc.encode_requirements(vocab, g.requirements)
-                 for g in groups])
-            group_req = np.stack(
-                [enc.encode_resource_vector(vocab, g.requests,
-                                            capacity=False)
-                 for g in groups])
+        ps = self.problem_state
+        with TRACER.span("encode.groups", groups=G) as gsp:
+            if ps is not None:
+                # (_drought_arrays above already pinned this solve's registry
+                # snapshot, so the warm-pack global token reads a stable view)
+                self.encode_kind = ps.note_encode(vocab)
+                g_rows = [ps.group_row(vocab, g) for g in groups]
+                group_enc = enc.stack_encoded([r[0] for r in g_rows])
+                group_req = np.stack([r[1] for r in g_rows])
+                gsp.set(encoded=ps.last["group_rows_encoded"])
+            else:
+                group_enc = enc.stack_encoded(
+                    [enc.encode_requirements(vocab, g.requirements)
+                     for g in groups])
+                group_req = np.stack(
+                    [enc.encode_resource_vector(vocab, g.requests,
+                                                capacity=False)
+                     for g in groups])
         template_enc = enc.stack_encoded(
             [enc.encode_requirements(vocab, t.requirements) for t in templates])
         daemon = np.stack([
@@ -753,12 +815,55 @@ class TensorScheduler:
         min_its = self._min_its_floor(templates, groups)
 
         exist_enc = exist_avail = exist_zone = tol_exist = None
-        if self.state_nodes:
+        exist_token = None
+        if self.state_nodes and ps is not None:
+            # persistent per-node rows: only dirty rows re-encode, and the
+            # padded stack (plus its device upload, via exist_token) is
+            # reused while the node set is unchanged
+            with TRACER.span("encode.nodes",
+                             nodes=len(self.state_nodes)) as nsp:
+                (exist_enc, exist_avail, exist_zone, taint_lists,
+                 exist_token) = ps.node_rows(vocab, zone_key,
+                                             self.state_nodes,
+                                             self.daemonset_pods)
+                tol_exist = _tol_exist_matrix(groups, taint_lists,
+                                              exist_enc.mask.shape[0])
+                nsp.set(dirty=ps.last["node_rows_reencoded"])
+                sd = ps.last.get("shard_dirty")
+                if sd is not None:
+                    # per-shard dirty-row counts, "shard:count" pairs —
+                    # the sharded state's delta-residency trace signal
+                    nsp.set(shard_dirty=",".join(
+                        f"{s}:{d}" for s, d in sorted(sd.items())))
+        elif self.state_nodes:
             with TRACER.span("encode.nodes", nodes=len(self.state_nodes)):
                 exist_enc, exist_avail, exist_zone, tol_exist = \
                     self._cold_node_rows(vocab, zone_key, groups, G)
 
         group_count = np.array([g.count for g in groups], dtype=np.int64)
+        if ps is not None:
+            # group-axis pow2 bucket: steady-state churn nudges G every
+            # pass; stable padded shapes keep the compiled-executable cache
+            # hitting (the node axis is already bucketed). Padded rows are
+            # empty-Requirements with zero requests — never packable, and
+            # the packer only iterates the real G anyway.
+            Gp = _pow2_bucket(G, 16)
+            if Gp > G:
+                pad = Gp - G
+                zero = enc.encode_requirements(vocab, Requirements())
+                group_enc = enc.pad_stacked(group_enc, Gp, zero)
+                group_req = np.concatenate(
+                    [group_req, np.zeros((pad,) + group_req.shape[1:],
+                                         group_req.dtype)])
+                group_count = np.concatenate(
+                    [group_count, np.zeros(pad, np.int64)])
+                tol_template = np.concatenate(
+                    [tol_template, np.zeros((pad, M), bool)])
+                if tol_exist is not None:
+                    tol_exist = np.concatenate(
+                        [tol_exist,
+                         np.zeros((pad, tol_exist.shape[1]), bool)])
+
         problem = binpack.PackProblem(
             vocab=vocab, group_enc=group_enc, group_req=group_req,
             group_count=group_count,
@@ -770,7 +875,11 @@ class TensorScheduler:
             off_price=off_price,
             exist_enc=exist_enc, exist_avail=exist_avail, exist_zone=exist_zone,
             tol_exist=tol_exist, allow_undefined=allow_undefined,
-            device_cache=device_cache, min_its=min_its)
+            device_cache=device_cache, min_its=min_its,
+            exist_token=exist_token,
+            exist_shard_tokens=(ps.exist_shard_tokens
+                                if ps is not None and exist_token is not None
+                                else None))
         return problem, templates, catalog
 
     def _cold_node_rows(self, vocab, zone_key: int, groups, G: int):
@@ -1122,8 +1231,47 @@ class TensorScheduler:
         vocab = problem.vocab
         zone_key = problem.zone_key
 
-        with TRACER.span("precompute"):
-            tensors = self.precompute(problem)
+        ps = self.problem_state
+        with TRACER.span("precompute") as pcs:
+            # persistent tensors memo (sharded-state churn fast path): the
+            # device kernel's group side reads nothing that changes on a
+            # pure count-wobble/node-churn pass, and the exist side feeds
+            # ONLY exist_ok/exist_cap — so a group-part hit with a dirty
+            # exist part runs the exist-only delta kernel (bit-identical
+            # ops to the full kernel's exist branch) and splices the pair
+            tensors = None
+            memo_tok = None
+            if ps is not None:
+                memo_tok = (
+                    (vocab, tuple(ps.sig(g) for g in groups), len(groups),
+                     ps._daemon_token(self.daemonset_pods),
+                     ps._templates_token(templates),
+                     tuple(self.drought_patterns),
+                     None if problem.min_its is None
+                     else problem.min_its.tobytes(),
+                     zone_key, problem.captype_key),
+                    problem.exist_token)
+                memo = ps.tensors_memo
+                if memo is not None and memo[0] == memo_tok:
+                    tensors = memo[1]
+                    ps.last["precompute"] = "reused"
+                elif (memo is not None and memo[0][0] == memo_tok[0]
+                      and memo_tok[1] is not None
+                      and problem.exist_enc is not None
+                      and _single_process()):
+                    import dataclasses
+                    exist_ok, exist_cap = binpack.exist_delta(
+                        problem, device=self.device)
+                    tensors = dataclasses.replace(
+                        memo[1], exist_ok=exist_ok, exist_cap=exist_cap)
+                    ps.last["precompute"] = "delta"
+            if tensors is None:
+                tensors = self.precompute(problem)
+                if ps is not None:
+                    ps.last["precompute"] = "computed"
+            if ps is not None:
+                ps.tensors_memo = (memo_tok, tensors)
+                pcs.set(reused=ps.last["precompute"])
 
         # nodepool limits (scaled), minus existing node capacity per pool
         limits: List[Optional[dict]] = []
@@ -1142,13 +1290,22 @@ class TensorScheduler:
         Z = len(problem.zone_values)
         zone_names = vocab.values[zone_key]
         exist_counts = host_total = None
-        with TRACER.span("topo.counts", groups=len(groups)):
+        with TRACER.span("topo.counts", groups=len(groups)) as tsp:
             if self.initial_zone_counts is not None:
                 izc = np.zeros((len(groups), Z), dtype=np.int64)
                 for gi, g in enumerate(groups):
                     counts = self.initial_zone_counts(g, zone_names)
                     for z, cnt in enumerate(counts):
                         izc[gi, z] = cnt
+            elif self.problem_state is not None:
+                # per-group counts memoized against Cluster.topo_revision:
+                # the scheduled-pod selector scans run only for groups the
+                # revision can no longer vouch for
+                izc, exist_counts, host_total = \
+                    self.problem_state.topology_counts(self, groups,
+                                                       zone_names, pods)
+                tsp.set(counted=self.problem_state.last[
+                    "topo_groups_counted"])
             else:
                 # default: count scheduled cluster pods matching each
                 # group's topology selectors so a deployment scale-up
@@ -1179,18 +1336,47 @@ class TensorScheduler:
                     for ni, sn in enumerate(self.state_nodes):
                         exist_port_block[gi, ni] = \
                             sn.host_port_usage().conflicts_triples(gp)
-        with TRACER.span("pack", groups=len(groups)):
-            packer = binpack.Packer(problem, tensors, groups, limits,
-                                    limit_resources,
-                                    initial_zone_counts=izc,
-                                    exist_order=sn_order,
-                                    exist_counts=exist_counts,
-                                    host_match_total=host_total,
-                                    vol_group_counts=vol_group_counts,
-                                    vol_node_remaining=vol_node_remaining,
-                                    group_ports=group_ports,
-                                    exist_port_block=exist_port_block)
-            pr = packer.pack()
+        warm = None
+        if self.problem_state is not None:
+            warm = self.problem_state.warm_start(
+                self, vocab, groups, templates, limits,
+                izc, exist_counts, host_total, problem.exist_token)
+        use_sharded = False
+        if self.pack_shards > 1:
+            # warm no longer forces the sequential pack: sharded_pack
+            # carries per-shard WarmStarts (warm.shard_seeds) through the
+            # same checkpoint machinery, so the sharded state warm-replays
+            from ..parallel.mesh import pack_shardable
+            use_sharded = pack_shardable(problem, limits, group_ports,
+                                         vol_group_counts)
+        with TRACER.span("pack", groups=len(groups)) as psp:
+            if use_sharded:
+                from ..parallel.mesh import sharded_pack
+                psp.set(sharded=self.pack_shards)
+                pr = sharded_pack(problem, tensors, groups,
+                                  self.pack_shards,
+                                  initial_zone_counts=izc,
+                                  exist_counts=exist_counts,
+                                  host_match_total=host_total,
+                                  warm=warm)
+            else:
+                packer = binpack.Packer(problem, tensors, groups, limits,
+                                        limit_resources,
+                                        initial_zone_counts=izc,
+                                        exist_order=sn_order,
+                                        exist_counts=exist_counts,
+                                        host_match_total=host_total,
+                                        vol_group_counts=vol_group_counts,
+                                        vol_node_remaining=vol_node_remaining,
+                                        group_ports=group_ports,
+                                        exist_port_block=exist_port_block,
+                                        warm=warm)
+                pr = packer.pack()
+            if self.problem_state is not None:
+                self.problem_state.finish_pack(warm)
+                psp.set(warm=self.problem_state.last["warm"],
+                        warm_restored=self.problem_state.last[
+                            "warm_restored"])
         with TRACER.span("materialize"):
             return self._materialize(pr, problem, groups, templates, catalog,
                                      vocab, zone_key)

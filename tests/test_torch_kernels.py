@@ -6,6 +6,7 @@ import dataclasses
 import shutil
 import stat
 
+import numpy as np
 import pytest
 import torch
 
@@ -121,3 +122,66 @@ def test_other_devices_are_refused():
         binpack.precompute_kernel(*args, **statics)
     with pytest.raises(ValueError, match="unsupported device"):
         binpack.precompute(problem, device="meta")
+
+
+# -- B3 row_splice -----------------------------------------------------------
+
+LEAF_KINDS = {
+    "mask": lambda rng, n: rng.integers(0, 2**32, (n, 3, 5),
+                                        dtype=np.uint64).astype(np.uint32),
+    "bool": lambda rng, n: rng.random((n, 9)) < 0.5,
+    "bounds": lambda rng, n: rng.integers(-2**31, 2**31 - 1, (n, 9),
+                                          dtype=np.int64).astype(np.int32),
+    "avail": lambda rng, n: rng.integers(-9, 1 << 20, (n, 4)).astype(
+        np.int32),
+}
+
+
+def _as_torch(a):
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+@pytest.mark.parametrize("kind", sorted(LEAF_KINDS))
+@pytest.mark.parametrize("seed", range(4))
+def test_row_splice_plain_matches_jax_donated_row_splice(kind, seed):
+    """The plain version equals the JAX package's _donated_row_splice on
+    random buffers, blocks and starts of every exist-side leaf type."""
+    from karpenter_tpu.parallel.mesh import _donated_row_splice
+    rng = np.random.default_rng(seed)
+    rows = int(rng.integers(1, 40))
+    span = int(rng.integers(1, rows + 1))
+    start = int(rng.integers(0, rows - span + 1))
+    make = LEAF_KINDS[kind]
+    buf, block = make(rng, rows), make(rng, span)
+    want = np.asarray(_donated_row_splice(buf.copy(), block, start))
+    got = _as_torch(buf)
+    kernels.row_splice_plain([got], [_as_torch(block)], start)
+    np.testing.assert_array_equal(
+        got.numpy().view(want.dtype) if kind == "mask" else got.numpy(), want)
+
+
+def test_row_splice_wrapper_takes_the_plain_version_on_the_cpu():
+    rng = np.random.default_rng(5)
+    bufs = [_as_torch(make(rng, 16)) for make in LEAF_KINDS.values()]
+    blocks = [make(rng, 4) for make in LEAF_KINDS.values()]
+    want = [b.clone() for b in bufs]
+    kernels.row_splice_plain(want, [_as_torch(b) for b in blocks], 8)
+    before = dict(kernels.LAUNCHES)
+    kernels.row_splice(bufs, blocks, 8)
+    assert kernels.LAUNCHES == before
+    for a, b in zip(bufs, want):
+        assert torch.equal(a, b)
+
+
+def test_row_splice_refuses_what_it_does_not_take():
+    buf = torch.zeros((8, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.row_splice([buf], [np.zeros((2, 3), np.int64)], 0)
+    with pytest.raises(ValueError, match="rows"):
+        kernels.row_splice([buf], [np.zeros((2, 4), np.int32)], 0)
+    with pytest.raises(ValueError, match="outside"):
+        kernels.row_splice([buf], [np.zeros((2, 3), np.int32)], 7)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.row_splice([torch.zeros((3, 8), dtype=torch.int32).T],
+                           [np.zeros((2, 3), np.int32)], 0)

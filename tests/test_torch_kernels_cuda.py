@@ -149,7 +149,8 @@ def test_precompute_cuda_matches_cpu(name):
     got = binpack.precompute(problem, device="cuda")
     has_exist = problem.exist_enc is not None
     assert kernels.LAUNCHES == {"combine_compat": 1, "catalog_feasibility": 1,
-                                "exist_feasibility": int(has_exist)}
+                                "exist_feasibility": int(has_exist),
+                                "row_splice": 0}
     assert_tensors_equal(binpack.precompute(problem, device="cpu"), got)
     if has_exist:
         ok, cap = binpack.exist_delta(problem, device="cuda")
@@ -194,3 +195,44 @@ def test_refused_launch_raises():
         kernels.exist_feasibility(group, i32([[1]]), exist, i32([[1]]),
                                   flags(rng, (1, 1), 1.0))
     assert kernels.LAUNCHES["exist_feasibility"] == before
+
+
+def exist_leaves(rng, rows, K, W, R, device="cuda"):
+    """The 7 exist-side leaves the mesh placer keeps resident."""
+    e = rand_enc(rng, rows, K, W, device)
+    return list(e) + [i32(rng.integers(-5, 1 << 20, (rows, R)), device)]
+
+
+@pytest.mark.parametrize("rows,start,span,K", [
+    (64, 16, 16, 9),      # 16-byte aligned everywhere
+    (64, 3, 5, 9),        # bool leaves start at an odd byte: byte path
+    (8192, 2048, 2048, 9),  # the north-star span
+    (33, 32, 1, 3),       # one row at the end
+])
+def test_row_splice_matches_plain(rows, start, span, K):
+    rng = np.random.default_rng(rows + start)
+    W, R = 64, 4
+    bufs = exist_leaves(rng, rows, K, W, R)
+    block = [x.cpu() for x in exist_leaves(rng, span, K, W, R)]
+    want = [b.clone() for b in bufs]
+    kernels.row_splice_plain(want, [b.to("cuda") for b in block], start)
+    before = kernels.LAUNCHES["row_splice"]
+    kernels.row_splice(bufs, block, start)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_splice"] == before + 1
+    for a, b in zip(bufs, want, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_mesh_precompute_on_one_card_matches_cpu():
+    """An 8-slot mesh over cuda:0 launches K1 + K2 on every slot and K3
+    once per pods_groups row; the result equals the CPU precompute."""
+    from karpenter_tpu_torch.parallel import mesh as tmesh
+    _, problem = build_problem(PORT, bench_workload(PORT, 900, 300,
+                                                    n_nodes=40))
+    m = tmesh.make_solver_mesh(devices=[torch.device("cuda", 0)] * 8)
+    kernels.reset_launches()
+    got = tmesh.sharded_precompute(problem, m)
+    assert kernels.LAUNCHES == {"combine_compat": 8, "catalog_feasibility": 8,
+                                "exist_feasibility": 4, "row_splice": 0}
+    assert_tensors_equal(binpack.precompute(problem, device="cpu"), got)

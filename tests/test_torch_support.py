@@ -287,3 +287,263 @@ def assert_tensors_equal(want, got):
         assert a.dtype == b.dtype and a.shape == b.shape, \
             (name, a.dtype, b.dtype, a.shape, b.shape)
         np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+# --------------------------------------------------------------------------
+# the warm path: a live cluster (store + informers + state) per package
+# --------------------------------------------------------------------------
+
+def warm_pkg(root: str) -> SimpleNamespace:
+    imp = lambda m: importlib.import_module(f"{root}.{m}")  # noqa: E731
+    return SimpleNamespace(
+        nodeclaim=imp("api.nodeclaim"), store=imp("kube.store"),
+        cluster=imp("state.cluster"), informers=imp("state.informers"),
+        unavailable=imp("state.unavailable"), clock=imp("utils.clock"),
+        pod_utils=imp("utils.pod"), topology=imp("provisioning.topology"),
+        problem_state=imp("provisioning.problem_state"),
+        plane=imp("state.plane"), audit=imp("state.audit"),
+        mesh=imp("parallel.mesh"), registry=imp("metrics.registry"),
+        tracer=imp("obs.tracer"))
+
+
+def state_cluster_view(root: str, store, cluster):
+    """The provisioner's StateClusterView over a store + cluster state: the
+    JAX package's own class, and for the port the same few lines over the
+    port's ClusterView (the port's provisioner is not carried yet)."""
+    if root == JAX:
+        from karpenter_tpu.provisioning.provisioner import StateClusterView
+        return StateClusterView(store, cluster)
+    w = warm_pkg(root)
+    o = pkg(root).objects
+
+    class StateClusterView(w.topology.ClusterView):
+        def __init__(self, store, cluster):
+            self.store = store
+            self.cluster = cluster
+
+        def list_pods(self, namespace, selector):
+            return self.store.list(
+                o.Pod, namespace=namespace,
+                predicate=lambda p: selector.matches(p.labels)
+                and w.pod_utils.is_active(p) and w.pod_utils.is_scheduled(p))
+
+        def node_labels(self, node_name):
+            sn = self.cluster._node_by_name(node_name)
+            return sn.labels() if sn is not None else None
+
+        def for_pods_with_anti_affinity(self):
+            for p in self.cluster.anti_affinity_pods():
+                if w.pod_utils.is_scheduled(p):
+                    labels = self.node_labels(p.spec.node_name)
+                    if labels is not None:
+                        yield p, labels
+
+    return StateClusterView(store, cluster)
+
+
+def cpu_mesh(root: str, n: int):
+    """An n-slot solver mesh on the CPU: the JAX package's over the
+    conftest's virtual CPU devices, the port's over one CPU device
+    repeated."""
+    m = warm_pkg(root).mesh
+    if root == JAX:
+        return m.make_solver_mesh(n)
+    import torch
+    return m.make_solver_mesh(devices=[torch.device("cpu")] * n)
+
+
+def digest(r, batch):
+    """Full decision digest by pod NAME (uids differ across packages):
+    launch claims, existing-node fills, errors."""
+    by_uid = {p.uid: p.metadata.name for p in batch}
+    return (sorted(
+        (nc.template.nodepool_name,
+         tuple(sorted(nc.requirements.get(
+             "topology.kubernetes.io/zone").values)),
+         tuple(it.name for it in nc.instance_type_options),
+         len(nc.pods),
+         tuple(sorted(p.metadata.name for p in nc.pods)))
+        for nc in r.new_nodeclaims),
+        sorted((en.name, tuple(sorted(p.metadata.name for p in en.pods)))
+               for en in r.existing_nodes if en.pods),
+        sorted((by_uid[u], msg) for u, msg in r.pod_errors.items()))
+
+
+def deployment(root: str, name, n, cpu="250m", spread_key=None,
+               host_spread=False):
+    k = pkg(root)
+    o, L = k.objects, k.labels
+    labels = {"app": name}
+    sel = o.LabelSelector(match_labels=dict(labels))
+    spread = []
+    if spread_key == "zone":
+        spread = [o.TopologySpreadConstraint(
+            topology_key=L.LABEL_TOPOLOGY_ZONE, max_skew=1,
+            label_selector=sel)]
+    elif host_spread:
+        spread = [o.TopologySpreadConstraint(
+            topology_key=L.LABEL_HOSTNAME, max_skew=1, label_selector=sel)]
+    return [o.Pod(metadata=o.ObjectMeta(name=f"{name}-{i}",
+                                        namespace="default",
+                                        labels=dict(labels)),
+                  spec=o.PodSpec(topology_spread_constraints=list(spread)),
+                  container_requests=[k.res.parse_list(
+                      {"cpu": cpu, "memory": "128Mi"})])
+            for i in range(n)]
+
+
+class ChurnEnv:
+    """tests/test_problem_state.py's ChurnEnv for either package: a live
+    cluster (store + informers + state) plus a persistent ProblemState;
+    solve_pair() runs the delta path and a cold control on identical
+    inputs and asserts identical decisions. ``mesh`` (from cpu_mesh) puts
+    both solves on a mesh."""
+
+    def __init__(self, root: str, n_nodes=4, pods_per_node=2, catalog=None,
+                 mesh=None, pack_shards=0):
+        k, w = pkg(root), warm_pkg(root)
+        self.root, self.k, self.w = root, k, w
+        self.mesh = mesh
+        self.pack_shards = pack_shards
+        self.clock = w.clock.FakeClock()
+        self.store = w.store.Store(self.clock)
+        self.cluster = w.cluster.Cluster(self.store, self.clock)
+        w.informers.wire_informers(self.store, self.cluster)
+        self.catalog = catalog if catalog is not None \
+            else k.kwok.construct_instance_types()
+        self.pool = nodepool(root, "default")
+        self.ps = w.problem_state.ProblemState()
+        self.registry = w.unavailable.UnavailableOfferings(clock=self.clock)
+        self.bound = {}
+        self._seq = 0
+        self.node_type = next(it for it in self.catalog
+                              if it.capacity.get("cpu") == 4000)
+        for i in range(n_nodes):
+            self.add_node(i, pods_per_node)
+
+    def add_node(self, i, pods_per_node=0):
+        k, w = self.k, self.w
+        L, o, nc_mod = k.labels, k.objects, w.nodeclaim
+        name = f"churn-node-{i:03d}"
+        labels = {
+            L.LABEL_HOSTNAME: name,
+            L.NODEPOOL_LABEL_KEY: "default",
+            L.NODE_INITIALIZED_LABEL_KEY: "true",
+            L.NODE_REGISTERED_LABEL_KEY: "true",
+            L.LABEL_INSTANCE_TYPE: self.node_type.name,
+            L.LABEL_TOPOLOGY_ZONE: f"test-zone-{'abc'[i % 3]}",
+            L.CAPACITY_TYPE_LABEL_KEY: L.CAPACITY_TYPE_ON_DEMAND,
+        }
+        nc = nc_mod.NodeClaim(
+            metadata=o.ObjectMeta(name=f"churn-nc-{i:03d}", namespace="",
+                                  labels=dict(labels)),
+            spec=nc_mod.NodeClaimSpec())
+        nc.status.provider_id = f"churn://{i}"
+        nc.status.node_name = name
+        for cond in (nc_mod.COND_LAUNCHED, nc_mod.COND_REGISTERED,
+                     nc_mod.COND_INITIALIZED):
+            nc.conditions.set_true(cond, now=self.clock.now())
+        self.store.create(nc)
+        self.store.create(o.Node(
+            metadata=o.ObjectMeta(name=name, namespace="", labels=labels),
+            spec=o.NodeSpec(provider_id=f"churn://{i}"),
+            status=o.NodeStatus(capacity=dict(self.node_type.capacity),
+                                allocatable=self.node_type.allocatable())))
+        self.bound.setdefault(name, [])
+        for _ in range(pods_per_node):
+            self.bind_pod(name)
+        return name
+
+    def bind_pod(self, node_name, labels=None):
+        o = self.k.objects
+        self._seq += 1
+        p = o.Pod(metadata=o.ObjectMeta(name=f"bound-{self._seq}",
+                                        namespace="default",
+                                        labels=dict(labels or {"warm": "w"})),
+                  spec=o.PodSpec(node_name=node_name),
+                  container_requests=[self.k.res.parse_list(
+                      {"cpu": "200m", "memory": "128Mi"})])
+        self.store.create(p)
+        self.bound[node_name].append(p)
+        return p
+
+    def complete_bound(self, node_name):
+        if self.bound.get(node_name):
+            self.store.delete(self.bound[node_name].pop())
+
+    def delete_node(self, name):
+        o, nc_mod = self.k.objects, self.w.nodeclaim
+        node = self.store.get(o.Node, name)
+        if node is not None:
+            self.store.delete(node)
+        nc = self.store.get(nc_mod.NodeClaim, name.replace("node", "nc"))
+        if nc is not None:
+            self.store.delete(nc)
+        self.bound.pop(name, None)
+
+    def live_nodes(self):
+        return [sn for sn in self.cluster.state_nodes() if not sn.deleting()]
+
+    def scheduler(self, ps, unavailable=True, state_nodes=None, **kw):
+        kw.setdefault("mesh", self.mesh)
+        kw.setdefault("pack_shards", self.pack_shards)
+        return scheduler(
+            self.root, [self.pool], {"default": self.catalog},
+            state_nodes=(self.live_nodes() if state_nodes is None
+                         else state_nodes),
+            cluster=state_cluster_view(self.root, self.store, self.cluster),
+            unavailable=self.registry if unavailable else None,
+            problem_state=ps, **kw)
+
+    def solve_pair(self, batch):
+        """(delta results, delta scheduler): decisions asserted identical
+        to a ProblemState-free cold solve of the same inputs."""
+        ts = self.scheduler(self.ps)
+        r = ts.solve(batch)
+        cold = self.scheduler(None)
+        r_cold = cold.solve(batch)
+        assert digest(r, batch) == digest(r_cold, batch), \
+            "delta solve diverged from cold solve"
+        assert ts.fallback_reason == cold.fallback_reason
+        return r, ts
+
+
+class ChurnPair:
+    """One ChurnEnv per package, driven in lockstep: every operation runs on
+    both, and every solve_pair asserts delta == cold inside each package and
+    the same decisions across the two."""
+
+    def __init__(self, mesh_slots=0, **kw):
+        self.envs = {}
+        for root in ROOTS:
+            mesh = cpu_mesh(root, mesh_slots) if mesh_slots else None
+            self.envs[root] = ChurnEnv(root, mesh=mesh, **kw)
+
+    def __iter__(self):
+        return iter(self.envs.values())
+
+    def do(self, fn):
+        for env in self.envs.values():
+            fn(env)
+
+    def solve_pair(self, make_batch):
+        """make_batch(root) -> the pods; returns {root: scheduler}."""
+        digests, schedulers = {}, {}
+        for root, env in self.envs.items():
+            batch = make_batch(root)
+            r, ts = env.solve_pair(batch)
+            digests[root] = digest(r, batch)
+            schedulers[root] = ts
+        assert digests[JAX] == digests[PORT], \
+            "the port's warm solve diverged from the JAX package's"
+        return schedulers
+
+    def last(self, key):
+        got = {root: env.ps.last.get(key) for root, env in self.envs.items()}
+        assert got[JAX] == got[PORT], (key, got)
+        return got[PORT]
+
+    def encode_kind(self, schedulers):
+        kinds = {root: ts.encode_kind for root, ts in schedulers.items()}
+        assert kinds[JAX] == kinds[PORT], kinds
+        return kinds[PORT]
