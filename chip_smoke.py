@@ -18,10 +18,26 @@ pending pods of the benchmark mix against a 2,000-type catalog:
   held to a cold solve of the same inputs;
 - cold with the pods/groups-sharded pack (``pack_shards=4``).
 
+Then it drives the loops that call the solve, on a live cluster (a kube
+store whose informers feed the cluster state, the kwok provider, a fake
+clock):
+
+- the Provisioner: the same 49,920 pending pods through
+  ``Provisioner.reconcile``, cold and then warm after a rollout arrives;
+- multi-node consolidation over 5,000 underutilized nodes x the kwok
+  144-type catalog (BASELINE.json config 4);
+- single-node consolidation over 5,000 candidates of which only the last
+  can go;
+- the DisruptionController (all four methods) over such a fleet: a cold
+  pass, then warm passes served by its streaming state.
+
 It checks that the kernels carried every path (launch counts, zeroed just
 before each path and read just after), that nothing fell back to the host
-oracle, and that the decisions equal the same solves run on the CPU through
-the plain versions, or cold solves on the card.
+oracle, and that the decisions equal the same solves, passes and commands
+run on the CPU through the plain versions, or cold solves on the card. The
+two kernels with no caller on any path (fits_matrix, offering_compat) are
+held against their plain versions at the solve's shapes and count no
+launches.
 
 Each phase prints JSON lines. The line before last is the kernel table; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -561,6 +577,323 @@ def _random_rows(rng, like, rows: int):
 FEASIBILITY = ("combine_compat", "catalog_feasibility", "exist_feasibility")
 
 
+# --------------------------------------------------------------------------
+# the provisioner and disruption loops on a live cluster
+# --------------------------------------------------------------------------
+
+def live_cluster(catalog, device, pool=None):
+    """A kube store with informers feeding the cluster state on a fake
+    clock, the kwok provider over ``catalog``, ``pool`` (default_pool()),
+    and a Provisioner on ``device``: what an operator wires."""
+    from types import SimpleNamespace
+    from karpenter_tpu_torch.cloudprovider.kwok import KwokCloudProvider
+    from karpenter_tpu_torch.kube.store import Store
+    from karpenter_tpu_torch.provisioning.provisioner import Provisioner
+    from karpenter_tpu_torch.state.cluster import Cluster
+    from karpenter_tpu_torch.state.informers import wire_informers
+    from karpenter_tpu_torch.utils.clock import FakeClock
+    clock = FakeClock()
+    store = Store(clock)
+    cluster = Cluster(store, clock)
+    wire_informers(store, cluster)
+    provider = KwokCloudProvider(instance_types=catalog, store=store)
+    provisioner = Provisioner(store, cluster, provider, clock, device=device)
+    store.create(pool or default_pool())
+    return SimpleNamespace(clock=clock, store=store, cluster=cluster,
+                           provider=provider, provisioner=provisioner,
+                           catalog=catalog)
+
+
+# The fleets below are built as tests/test_torch_support.py builds them
+# through LiveEnv (pool, node, bind) for both packages;
+# tests/test_torch_disruption.py holds the two stores equal.
+
+def consolidation_pool():
+    """default_pool() with the consolidation tests' 100% budget."""
+    from karpenter_tpu_torch.api import nodepool as np_
+    pool = default_pool()
+    pool.spec.disruption.budgets = [np_.Budget(nodes="100%")]
+    pool.spec.disruption.consolidate_after = 0.0
+    return pool
+
+
+def fab_node(env, name: str, it) -> None:
+    """An initialized, registered, consolidatable on-demand claim of type
+    ``it`` in test-zone-a, carrying its pool's hash, and its node."""
+    from karpenter_tpu_torch.api import labels as L
+    from karpenter_tpu_torch.api import nodeclaim as nc_mod
+    from karpenter_tpu_torch.api import nodepool as np_
+    from karpenter_tpu_torch.api import objects as o
+    alloc = it.allocatable()
+    labels = {L.NODEPOOL_LABEL_KEY: "default",
+              L.LABEL_INSTANCE_TYPE: it.name,
+              L.CAPACITY_TYPE_LABEL_KEY: L.CAPACITY_TYPE_ON_DEMAND,
+              L.LABEL_TOPOLOGY_ZONE: "test-zone-a", L.LABEL_HOSTNAME: name}
+    pool = env.store.get(np_.NodePool, "default")
+    annotations = {
+        L.NODEPOOL_HASH_ANNOTATION_KEY: pool.static_hash(),
+        L.NODEPOOL_HASH_VERSION_ANNOTATION_KEY: np_.NODEPOOL_HASH_VERSION}
+    pid = f"fab://{name}"
+    nc = nc_mod.NodeClaim(
+        metadata=o.ObjectMeta(name=name, labels=dict(labels),
+                              annotations=annotations),
+        spec=nc_mod.NodeClaimSpec(startup_taints=[]),
+        status=nc_mod.NodeClaimStatus(provider_id=pid, node_name=name,
+                                      capacity=dict(alloc),
+                                      allocatable=dict(alloc)))
+    for cond in (nc_mod.COND_LAUNCHED, nc_mod.COND_REGISTERED,
+                 nc_mod.COND_INITIALIZED, nc_mod.COND_CONSOLIDATABLE):
+        nc.conditions.set_true(cond, now=env.clock.now())
+    env.store.create(nc)
+    env.store.create(o.Node(
+        metadata=o.ObjectMeta(
+            name=name, labels={**labels, L.NODE_INITIALIZED_LABEL_KEY: "true"},
+            finalizers=[L.TERMINATION_FINALIZER]),
+        spec=o.NodeSpec(provider_id=pid, taints=[]),
+        status=o.NodeStatus(capacity=dict(alloc), allocatable=dict(alloc))))
+
+
+def fab_pod(env, node_name: str, name: str, cpu: str) -> None:
+    """A running pod bound to ``node_name`` requesting ``cpu`` and 128Mi."""
+    from karpenter_tpu_torch.api import objects as o
+    from karpenter_tpu_torch.utils.resources import parse_list
+    p = o.Pod(metadata=o.ObjectMeta(name=name, namespace="default"),
+              spec=o.PodSpec(node_name=node_name),
+              container_requests=[parse_list({"cpu": cpu,
+                                              "memory": "128Mi"})])
+    p.status.phase = "Running"
+    env.store.create(p)
+
+
+def underutilized_fleet(device, n: int = N_NODES):
+    """BASELINE config 4 (bench.py bench_consolidation): n initialized,
+    consolidatable 4-cpu amd64 nodes over the kwok 144-type catalog, each
+    holding one 200m / 128Mi pod."""
+    from karpenter_tpu_torch.cloudprovider.kwok import \
+        construct_instance_types
+    catalog = construct_instance_types()
+    env = live_cluster(catalog, device, consolidation_pool())
+    big = next(it for it in catalog if it.capacity.get("cpu") == 4000
+               and "amd64-linux" in it.name)
+    for i in range(n):
+        fab_node(env, f"bench-node-{i:05d}", big)
+    for i in range(n):
+        fab_pod(env, f"bench-node-{i:05d}", f"bench-pod-{i}", "200m")
+    env.clock.step(600)
+    return env
+
+
+def stuck_fleet(device, n: int = N_NODES, prefix: str = "single"):
+    """bench.py's single-node and disruption-scale shape: an on-demand-only
+    kwok catalog, n - 1 nodes each holding one pod that fits nowhere else
+    and on no cheaper type, and one last node whose two 200m pods fit the
+    others' headroom — the only win, last in the fair order."""
+    from karpenter_tpu_torch.api import labels as L
+    from karpenter_tpu_torch.cloudprovider.kwok import \
+        construct_instance_types
+    from karpenter_tpu_torch.cloudprovider.types import Offerings
+    catalog = construct_instance_types()
+    for it in catalog:
+        it.offerings = Offerings(
+            [o for o in it.offerings
+             if o.capacity_type == L.CAPACITY_TYPE_ON_DEMAND])
+    env = live_cluster(catalog, device, consolidation_pool())
+
+    def od_price(it):
+        return min((o.price for o in it.offerings if o.available),
+                   default=float("inf"))
+
+    ref = next(it for it in catalog if it.capacity.get("cpu") == 4000
+               and "amd64-linux" in it.name)
+    stuck_req = ref.allocatable()["cpu"] - 300  # 300m headroom per node
+    big = min((it for it in catalog
+               if it.allocatable().get("cpu", 0) >= stuck_req), key=od_price)
+    assert big.allocatable()["cpu"] - stuck_req < stuck_req
+    small = min((it for it in catalog if it.capacity.get("cpu") == 1000),
+                key=od_price)
+    # every node first, then the pods: bound pods then take the informer's
+    # per-pod path instead of a pod-store scan per node
+    for i in range(n):
+        fab_node(env, f"{prefix}-node-{i:05d}", big if i < n - 1 else small)
+    for i in range(n - 1):
+        fab_pod(env, f"{prefix}-node-{i:05d}", f"{prefix}-pod-{i}",
+                f"{stuck_req}m")
+    for j in range(2):
+        fab_pod(env, f"{prefix}-node-{n - 1:05d}", f"{prefix}-winner-{j}",
+                "200m")
+    env.clock.step(600)
+    return env
+
+
+def command_digest(cmd) -> tuple:
+    """A disruption command by name: decision, candidates, replacement
+    instance-type options."""
+    return (cmd.decision, sorted(c.name for c in cmd.candidates),
+            [[it.name for it in r.instance_type_options]
+             for r in cmd.replacements])
+
+
+def _sync(device) -> None:
+    if str(device).startswith("cuda"):
+        import torch
+        torch.cuda.synchronize()
+
+
+def provisioner_passes(device):
+    """The north-star pending batch (bench_pods over construct_catalog(
+    N_ITS)) through Provisioner.reconcile on a live cluster: a cold pass,
+    then a warm pass after a rollout deployment arrives, packed against the
+    first pass's claims (in flight, so existing nodes of the solve). Each
+    pass is one reconcile after the batcher window has passed, timed on
+    the host clock ending in a device synchronize. Returns one record per
+    pass: seconds, claims created, pod errors, existing nodes used, the
+    decision digest, ps.last and the trace."""
+    from karpenter_tpu_torch.api.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.api.objects import Pod
+    from karpenter_tpu_torch.cloudprovider.kwok import construct_catalog
+    from karpenter_tpu_torch.flightrec.record import decision_digest
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    from karpenter_tpu_torch.provisioning.provisioner import \
+        BATCH_IDLE_SECONDS
+    env = live_cluster(construct_catalog(N_ITS), device)
+    pods = bench_pods()
+    for p in pods:
+        env.store.create(p)
+    out = []
+    for i, arriving in enumerate(([], rollout_deployment(
+            1, N_PODS // N_DEPLOYS))):
+        for p in arriving:
+            env.store.create(p)
+        env.provisioner.reconcile()         # opens the batcher window
+        env.clock.step(BATCH_IDLE_SECONDS + 0.1)
+        before = len(env.store.list(NodeClaim))
+        t0 = time.perf_counter()
+        env.provisioner.reconcile()
+        _sync(device)
+        s = time.perf_counter() - t0
+        trace = TRACER.last()
+        r = env.provisioner.last_results
+        ts = env.provisioner.last_scheduler
+        assert ts.fallback_reason == "", ts.fallback_reason
+        out.append({
+            "pass": i, "s": s,
+            "claims_created": len(env.store.list(NodeClaim)) - before,
+            "errors": len(r.pod_errors),
+            "existing_used": sum(1 for en in r.existing_nodes if en.pods),
+            "digest": decision_digest(r, env.store.list(Pod), "",
+                                      ts.partition),
+            "ps_last": {k: env.provisioner.problem_state.last.get(k)
+                        for k in ("encode_kind", "node_rows_reencoded",
+                                  "precompute")},
+            "trace": trace})
+    return out
+
+
+def multi_consolidation(env, repeats: int = REPEATS):
+    """get_candidates + MultiNodeConsolidation.compute_command with the
+    budget lifted to the fleet: a cold pass, then ``repeats`` more; returns
+    (candidates, command, per-pass seconds, probes and trace of the last
+    pass)."""
+    from karpenter_tpu_torch.disruption.helpers import get_candidates
+    from karpenter_tpu_torch.disruption.methods import \
+        MultiNodeConsolidation
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    method = MultiNodeConsolidation(env.cluster, env.provisioner)
+    seconds, cmd, cands = [], None, None
+    for _ in range(1 + repeats):
+        t0 = time.perf_counter()
+        with TRACER.span("consolidation_multi"):
+            cands = get_candidates(env.cluster, env.provisioner,
+                                   method.should_disrupt)
+            cmd, _ = method.compute_command({"default": len(cands)}, cands)
+        _sync(env.provisioner.device)
+        seconds.append(time.perf_counter() - t0)
+    trace = TRACER.last()
+    probes = sum(1 for sp in trace.spans if sp.name == "disruption.sim")
+    return cands, cmd, seconds, probes, trace, method
+
+
+def single_consolidation(env, repeats: int = REPEATS - 1):
+    """SingleNodeConsolidation.compute_command over every candidate: a
+    cold pass, then ``repeats`` more (the memo dropped before each)."""
+    from karpenter_tpu_torch.disruption.helpers import get_candidates
+    from karpenter_tpu_torch.disruption.methods import \
+        SingleNodeConsolidation
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    method = SingleNodeConsolidation(env.cluster, env.provisioner)
+    seconds, cmds, cands = [], [], None
+    for _ in range(1 + repeats):
+        method._last_state = None
+        t0 = time.perf_counter()
+        with TRACER.span("consolidation_single"):
+            cands = get_candidates(env.cluster, env.provisioner,
+                                   method.should_disrupt)
+            cmd, _ = method.compute_command({"default": len(cands)}, cands)
+        _sync(env.provisioner.device)
+        seconds.append(time.perf_counter() - t0)
+        cmds.append(command_digest(cmd))
+        assert cmds[-1] == cmds[0], "the decision moved between passes"
+    return cands, cmds[0], seconds, method.last_engine_stats, TRACER.last()
+
+
+def controller_pass(ctrl):
+    """One DisruptionController.reconcile through all four methods, the
+    TTL wait and the methods' memos dropped first; returns (seconds, the
+    command awaiting validation)."""
+    ctrl.pending = None
+    for m in ctrl.methods:
+        if hasattr(m, "_last_state"):
+            m._last_state = None
+    t0 = time.perf_counter()
+    ctrl.reconcile()
+    _sync(ctrl.provisioner.device)
+    s = time.perf_counter() - t0
+    assert ctrl.pending is not None, "the pass made no decision"
+    return s, command_digest(ctrl.pending[0])
+
+
+def traces_since(mark):
+    """The traces completed after the one named ``mark`` (a trace id, or
+    None for every trace in the ring)."""
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    traces = TRACER.traces()
+    ids = [t.trace_id for t in traces]
+    return traces[ids.index(mark) + 1:] if mark in ids else traces
+
+
+def merged_spans(traces, n: int = 12) -> dict:
+    """The n largest exclusive span times (ms) summed over ``traces``."""
+    from karpenter_tpu_torch.obs.tracer import phase_millis
+    total: dict = {}
+    for t in traces:
+        for k, v in phase_millis(t).items():
+            total[k] = total.get(k, 0.0) + v
+    return dict(sorted(total.items(), key=lambda kv: -kv[1])[:n])
+
+
+def encoding_shapes(env, candidates) -> dict:
+    """The tensor shapes of one disruption encode of ``candidates`` over a
+    fresh snapshot (G is padded to a power of two of at least 8, N is the
+    pow2 bucket of the packable nodes)."""
+    from karpenter_tpu_torch.disruption.prefix import DisruptionSnapshot
+    enc = DisruptionSnapshot(env.cluster, env.provisioner).encoding_for(
+        candidates)
+    p = enc.problem
+    G, K, W = p.group_enc.mask.shape
+    return {"G": G, "M": p.template_enc.mask.shape[0],
+            "T": p.it_enc.mask.shape[0], "K": K, "W": W,
+            "O": p.off_zone.shape[1], "Z": p.zone_values.shape[0],
+            "N": enc.tensors.exist_ok.shape[1]}
+
+
+def new_controller(env):
+    from karpenter_tpu_torch.disruption.controller import (
+        DisruptionController, OrchestrationQueue)
+    return DisruptionController(
+        env.store, env.cluster, env.provisioner,
+        OrchestrationQueue(env.store, env.cluster, env.clock), env.clock)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -571,6 +904,7 @@ def main() -> None:
     from karpenter_tpu_torch.flightrec.record import decision_digest
     from karpenter_tpu_torch.obs.tracer import TRACER, phase_millis
     from karpenter_tpu_torch.ops import binpack, kernels
+    from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.provisioning import tensor_scheduler as ts_mod
     from karpenter_tpu_torch.provisioning.grouping import partition_pods
     from karpenter_tpu_torch.cloudprovider.kwok import construct_catalog
@@ -638,6 +972,40 @@ def main() -> None:
     k3_in = (group, group_req, exist, exist_avail, tol_exist)
     k3 = lambda: kernels.exist_feasibility(*k3_in)  # noqa: E731
     k3p = lambda: kernels.exist_feasibility_plain(*k3_in)  # noqa: E731
+    # B5 at the shapes of the solve with nodes: the groups' requests
+    # against the padded node rows; the groups' masks against the catalog's
+    # offerings, with the masks' zone and capacity-type rows drawn from SEED
+    # (a quarter of the bits set), a seeded half of the offerings available
+    # and a twentieth of the zone indices moved past 32 * W, where they read
+    # as admitted. Neither has a caller on a main path
+    b5_rng = np.random.default_rng(SEED)
+
+    def b5_draw(x):
+        return torch.from_numpy(np.asarray(x)).to(dev)
+
+    def b5_words():
+        return b5_rng.integers(-2**31, 2**31, (G, W)).astype(np.int32)
+
+    zk, ck = problem.zone_key, problem.captype_key
+    b5_mask = group.mask.clone()
+    for key in (zk, ck):
+        b5_mask[:, key] = b5_draw(b5_words() & b5_words())
+    b5_zone = torch.where(b5_draw(b5_rng.random((T, O)) < 0.05),
+                          32 * W + b5_draw(b5_rng.integers(0, 64, (T, O))
+                                           .astype(np.int32)), off_zone)
+    b5_avail = off_avail & b5_draw(b5_rng.random((T, O)) < 0.5)
+    b5a_in = (group_req, exist_avail)
+    b5b_in = (b5_mask, zk, ck, b5_zone, off_captype, b5_avail)
+    b5a = lambda: kernels.fits_matrix(*b5a_in)  # noqa: E731
+    b5ap = lambda: feas.fits_matrix(*b5a_in)  # noqa: E731
+    b5b = lambda: kernels.offering_compat(*b5b_in)  # noqa: E731
+    b5bp = lambda: feas.offering_compat(*b5b_in)  # noqa: E731
+    # offering_compat stops at the first admitted offering: count the
+    # offerings these inputs make it examine
+    admitted = (b5_avail[None] & feas.value_bit_ok(b5_mask[:, zk], b5_zone)
+                & feas.value_bit_ok(b5_mask[:, ck], off_captype))  # [G, T, O]
+    examined = int(torch.where(admitted.any(-1),
+                               admitted.int().argmax(-1) + 1, O).sum())
     MG = M * G
     checks = {
         "combine_compat": dict(
@@ -652,6 +1020,17 @@ def main() -> None:
             fns=(k3, k3p), replaces="karpenter_tpu/ops/binpack.py:616",
             bytes_in=_nbytes(*k3_in),
             ops=G * N * (2 * K * W + 9 * K + 2 * R)),
+        # two compares, an OR and an AND per (node, group, resource)
+        "fits_matrix": dict(
+            fns=(b5a, b5ap), replaces="karpenter_tpu/ops/feasibility.py:120",
+            bytes_in=_nbytes(*b5a_in), ops=4 * N * G * R),
+        # the zone and capacity-type rows of the masks are all it must read;
+        # about twelve integer operations per offering examined
+        "offering_compat": dict(
+            fns=(b5b, b5bp), replaces="karpenter_tpu/ops/feasibility.py:129",
+            bytes_in=2 * G * W * 4 + _nbytes(off_zone, off_captype,
+                                             off_avail),
+            ops=12 * examined),
     }
     rows = {}
     for name, c in checks.items():
@@ -662,6 +1041,11 @@ def main() -> None:
         equal, err = _compare(out_k, out_p)
         assert equal, f"{name}: kernel and plain version disagree (max " \
                       f"abs err {err})"
+        if name in ("fits_matrix", "offering_compat"):
+            # an output of one value would not tell a kernel that ignores
+            # some of its inputs from a right one
+            assert out_k.any() and not out_k.all(), \
+                f"{name}: the inputs give an output of one value"
         bound_ms, bound_by = _bound(c["bytes_in"] + _nbytes(out_k), c["ops"])
         rows[name] = {
             "name": name, "route": "cuda",
@@ -672,6 +1056,12 @@ def main() -> None:
             "device_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": c["bytes_in"] + _nbytes(out_k), "ops": c["ops"],
             "library_ms": None}
+    for name in ("fits_matrix", "offering_compat"):
+        fn = checks[name]["fns"][0]
+        ms, n = next((v for k, v in _profile(fn)["device_ms_by_name"].items()
+                      if k.startswith(f"{name}_kernel")), (None, 0))
+        rows[name]["device_ms"] = ms / n if n else None
+    rows["offering_compat"]["offerings_examined"] = examined
 
     # B3 row_splice: the rows of one exist shard of the warm mesh (N / 4 of
     # the padded node axis) in the seven resident leaves, from host blocks.
@@ -860,12 +1250,150 @@ def main() -> None:
            "sequential_nodes_launched": len(runs["cold"].new_nodeclaims),
            "spans_ms": _top_spans(trace)})
 
-    # 11. every path launched the kernels it runs; the table counts them all
+    # 11. the Provisioner loop: the north-star batch through
+    # Provisioner.reconcile, cold and then warm after a rollout, each pass's
+    # decisions equal to the same pass through the plain versions on the CPU
+    kernels.reset_launches()
+    gpu_passes = provisioner_passes(DEVICE)
+    paths["provisioner_pass"] = dict(kernels.LAUNCHES)
+    cpu_passes = provisioner_passes("cpu")
+    for g, c in zip(gpu_passes, cpu_passes, strict=True):
+        assert g["digest"] == c["digest"], \
+            f"provisioner pass {g['pass']}: cuda and cpu decisions differ"
+        _emit({"phase": "provisioner_pass", "pass": g["pass"],
+               "window": ("cold", "rollout")[g["pass"]], "s": g["s"],
+               "cpu_s": c["s"], "claims_created": g["claims_created"],
+               "errors": g["errors"], "existing_used": g["existing_used"],
+               "digest_equals_cpu": True, "ps_last": g["ps_last"],
+               "spans_ms": _top_spans(g["trace"])})
+    _emit({"phase": "provisioner_pass_launches",
+           "launches": paths["provisioner_pass"]})
+
+    # 12. multi-node consolidation over BASELINE config 4's fleet: 5,000
+    # underutilized nodes x the kwok 144-type catalog, the budget lifted;
+    # the command equal to the plain versions' on the CPU
+    env = underutilized_fleet(DEVICE)
+    kernels.reset_launches()
+    cands, cmd, seconds, probes, trace, method = multi_consolidation(env)
+    paths["consolidation_multi"] = dict(kernels.LAUNCHES)
+    assert len(cands) == N_NODES, len(cands)
+    assert cmd.candidates, "no consolidation decision found"
+    multi_shapes = encoding_shapes(env, sorted(
+        cands, key=lambda c: c.disruption_cost)[:100])
+    before = dict(kernels.LAUNCHES)
+    prof = _profile(lambda: multi_consolidation(env, repeats=0))
+    profiled = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    cpu_env = underutilized_fleet("cpu")
+    _, cpu_cmd, cpu_seconds, _, _, _ = multi_consolidation(cpu_env,
+                                                           repeats=0)
+    assert command_digest(cmd) == command_digest(cpu_cmd), \
+        "multi-node consolidation: cuda and cpu commands differ"
+    _emit({"phase": "consolidation_multi", "nodes": N_NODES,
+           "instance_types": len(env.catalog), "candidates": len(cands),
+           "cold_s": seconds[0], "best_s": min(seconds[1:]), "s": seconds,
+           "cpu_s": cpu_seconds[0], "decision": cmd.decision,
+           "command_candidates": len(cmd.candidates),
+           "replacements": len(cmd.replacements),
+           "replacement_options": [len(r.instance_type_options)
+                                   for r in cmd.replacements],
+           "probes": probes, "engine": method.last_multi_engine_stats,
+           "shapes": multi_shapes,
+           "command_equals_cpu": True,
+           "launches_per_pass": {k: v // (1 + REPEATS) for k, v in
+                                 paths["consolidation_multi"].items()},
+           "spans_ms": _top_spans(trace, 12),
+           "profile": {**prof, "launches": profiled}})
+    del env, cpu_env
+
+    # 13. single-node consolidation at 5,000 candidates, every candidate but
+    # the last unconsolidatable: the last one wins, classified with no
+    # per-candidate fallback simulation, equal to the CPU's command
+    env = stuck_fleet(DEVICE)
+    kernels.reset_launches()
+    cands, cmd_d, seconds, stats, trace = single_consolidation(env)
+    paths["consolidation_single"] = dict(kernels.LAUNCHES)
+    single_shapes = encoding_shapes(env, cands)
+    assert len(cands) == N_NODES, len(cands)
+    assert cmd_d[:2] == ("delete", [f"single-node-{N_NODES - 1:05d}"]), cmd_d
+    assert stats is not None and stats["needs_sim"] == 0, stats
+    assert stats["probes"] == 1, stats
+    cpu_env = stuck_fleet("cpu")
+    _, cpu_cmd_d, cpu_seconds, _, _ = single_consolidation(cpu_env,
+                                                           repeats=0)
+    assert cmd_d == cpu_cmd_d, \
+        "single-node consolidation: cuda and cpu commands differ"
+    _emit({"phase": "consolidation_single", "candidates": len(cands),
+           "instance_types": len(env.catalog), "cold_s": seconds[0],
+           "best_s": min(seconds[1:]), "s": seconds, "cpu_s": cpu_seconds[0],
+           "decision": cmd_d[0], "chosen": cmd_d[1], "engine": stats,
+           "shapes": single_shapes,
+           "command_equals_cpu": True,
+           "spans_ms": _top_spans(trace, 12)})
+    del cpu_env
+
+    # 14. the DisruptionController over the same shape of fleet (a fresh
+    # one, N_NODES nodes, which cuts bench.py's default of 50,000): a cold
+    # pass through all four methods, then warm passes served by the
+    # streaming state, each equal to a fresh controller's cold rebuild and
+    # to the cold pass on the CPU
+    del env
+    env = stuck_fleet(DEVICE, prefix="dscale")
+    ctrl = new_controller(env)
+    kernels.reset_launches()
+    passes = []
+    for i in range(1 + WINDOW_REPEATS):
+        before = dict(kernels.LAUNCHES)
+        last = TRACER.last()
+        s, cmd_d = controller_pass(ctrl)
+        # one trace per method that had candidates (disruption.pass roots)
+        traces = traces_since(last.trace_id if last else None)
+        stream = ctrl.stream
+        passes.append({
+            "pass": i, "kind": "warm" if i else "cold", "s": s,
+            "command": cmd_d,
+            "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before
+                         if kernels.LAUNCHES[k] - before[k]},
+            "layers": stream.last.get("layers"),
+            "rows_rebuilt": stream.last.get("rows_rebuilt"),
+            "rows_reused": stream.last.get("rows_reused"),
+            "encodes": sum(sp.name == "disruption.encode"
+                           for t in traces for sp in t.spans),
+            "probes": sum(sp.name == "disruption.sim"
+                          for t in traces for sp in t.spans),
+            "spans_ms": merged_spans(traces)})
+        if i:
+            assert set(stream.last["layers"].values()) == {"reused"}, \
+                stream.last
+            assert stream.last["rows_rebuilt"] == 0, stream.last
+    paths["disruption_controller"] = dict(kernels.LAUNCHES)
+    decision = passes[0]["command"]
+    assert decision[:2] == ("delete", [f"dscale-node-{N_NODES - 1:05d}"]), \
+        decision
+    _, fresh = controller_pass(new_controller(env))
+    cpu_env = stuck_fleet("cpu", prefix="dscale")
+    cpu_s, cpu_decision = controller_pass(new_controller(cpu_env))
+    for p in passes:
+        assert p["command"] == fresh == cpu_decision, \
+            f"controller pass {p['pass']}: != the cold rebuild or the cpu"
+        p["command_equals_cold_rebuild_and_cpu"] = True
+        _emit({"phase": "disruption_controller", "nodes": N_NODES,
+               "reduced": f"nodes: {N_NODES} (bench.py's default is 50000)",
+               **{k: v for k, v in p.items() if k != "command"},
+               "decision": decision[0], "chosen": decision[1]})
+    _emit({"phase": "disruption_controller_cpu", "cold_s": cpu_s})
+    del env, cpu_env
+
+    # 15. every path launched the kernels it runs; the table counts them
+    # all (B5 has no caller on any path: its launches stay 0)
     expect = {"solve": FEASIBILITY, "solve_mesh_1x1": FEASIBILITY,
               "solve_mesh_4x2": FEASIBILITY,
               "warm_churn": FEASIBILITY,
               "warm_churn_mesh": FEASIBILITY + ("row_splice",),
-              "solve_sharded_pack": FEASIBILITY[:2]}
+              "solve_sharded_pack": FEASIBILITY[:2],
+              "provisioner_pass": FEASIBILITY,
+              "consolidation_multi": FEASIBILITY,
+              "consolidation_single": FEASIBILITY,
+              "disruption_controller": FEASIBILITY}
     for path, names in expect.items():
         for name in names:
             assert paths[path][name] > 0, \
@@ -873,11 +1401,13 @@ def main() -> None:
     total = {name: sum(p[name] for p in paths.values())
              for name in kernels.KERNELS}
     _emit({"phase": "main_path_launches", **total, "paths": paths})
+    on_paths = {name for names in expect.values() for name in names}
     for name, n in total.items():
-        assert n > 0, f"{name} was never launched on the main path"
+        assert n > 0 or name not in on_paths, \
+            f"{name} was never launched on the main path"
         rows[name]["launches"] = n
 
-    # 12. the kernel table and the verdict
+    # 16. the kernel table and the verdict
     _emit({"kernels": list(rows.values())})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -7,9 +7,12 @@
 //   - intersects_matrix(it, cmb): every key both sides define must keep a
 //     nonempty mask AND (after the joint Gt/Lt collapse) unless both sides
 //     are exempt;
-//   - zone admission: the bits of cmb's zone key at each zone value;
+//   - zone admission: the bits of cmb's zone key at each zone value (a
+//     value past the mask's words admitted, as jnp.take fills);
 //   - offerings: available, capacity-type value admitted (-1 ==
-//     unconstrained, never read), zone index equal to the zone's value;
+//     unconstrained, never read; a value past the words reads the last
+//     word, as the reference's gather clamps), zone index equal to the
+//     zone's value;
 //   - pods_per_node: min over resources of max(alloc - daemon, 0) // req,
 //     2^30 for a zero request, 0 when the daemon overhead does not fit;
 //   - the AND of those with template_its, tol_template, compat_tm and
@@ -62,7 +65,7 @@ __global__ void catalog_feasibility_kernel(
       const int mg = mg0 + j;
       const uint32_t* zrow = s_cmb + (size_t)j * row_words + (size_t)zone_key * W;
       zone_adm_out[((size_t)(mg % G) * M + mg / G) * Z + z] =
-          kt_bit(zrow, zone_values[z]);
+          kt_bit_fill(zrow, zone_values[z], W);
     }
   }
 
@@ -125,11 +128,11 @@ __global__ void catalog_feasibility_kernel(
         const int z = wz * word_bits + b;
         if (z >= Z) break;
         const int32_t zv = zone_values[z];
-        if (!kt_bit(zrow, zv)) continue;
+        if (!kt_bit_fill(zrow, zv, W)) continue;
         for (int o = 0; o < O; ++o) {
           if (off_avail[t0 + o] == 0 || off_zone[t0 + o] != zv) continue;
           const int32_t cv = off_captype[t0 + o];
-          if (cv < 0 || kt_bit(crow, cv)) {
+          if (cv < 0 || kt_bit_clamp(crow, cv, W)) {
             word |= 1u << b;
             break;
           }

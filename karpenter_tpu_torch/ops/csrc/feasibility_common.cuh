@@ -36,9 +36,19 @@ __device__ __forceinline__ int32_t kt_floordiv(int32_t a, int32_t b) {
   return q;
 }
 
-// Bit `v` of one key's mask row (v >= 0).
-__device__ __forceinline__ bool kt_bit(const uint32_t* row, int32_t v) {
-  return (row[v >> 5] >> (v & 31)) & 1u;
+// Bit `v` of one key's mask row of W words (v >= 0). The reference reads
+// a value index at or past 32 * W in two ways, and neither reads past the
+// row: jnp.take fills with all ones (kt_bit_fill: admitted), a plain
+// gather clamps to the last word (kt_bit_clamp).
+__device__ __forceinline__ bool kt_bit_fill(const uint32_t* row, int32_t v,
+                                            int W) {
+  const int32_t word = v >> 5;
+  return word >= W || ((row[word] >> (v & 31)) & 1u);
+}
+
+__device__ __forceinline__ bool kt_bit_clamp(const uint32_t* row, int32_t v,
+                                             int W) {
+  return (row[min(v >> 5, W - 1)] >> (v & 31)) & 1u;
 }
 
 // A rows-x-tile pass over the mask words: for each of `nt` shared-memory

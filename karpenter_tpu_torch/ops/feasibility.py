@@ -133,8 +133,27 @@ def fits_matrix(requests: torch.Tensor, available: torch.Tensor) -> torch.Tensor
 
 def value_bit_ok(masks: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """masks [B,W] (one key's words), idx [T,O] value indices -> [B,T,O]:
-    does each row admit each single value (-1 == unconstrained, never read)."""
+    does each row admit each single value (-1 == unconstrained, never read).
+    An index at or past 32 * W is admitted: the reference gathers with
+    ``jnp.take`` / ``jnp.take_along_axis``, whose out-of-range fill for
+    uint32 is all ones. No word past W is read."""
+    W = masks.shape[-1]
     word = torch.where(idx >= 0, idx // 32, 0)
+    bit = torch.where(idx >= 0, idx % 32, 0)
+    inside = word < W
+    has = (masks[:, torch.where(inside, word, 0).long()]
+           >> bit[None, :, :]) & 1
+    return torch.where((idx >= 0) & inside, has == 1, True)
+
+
+def value_bit_ok_clamped(masks: torch.Tensor, idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """value_bit_ok, but an index at or past 32 * W reads its bit from the
+    last word, as the reference's plain ``masks[:, word]`` gather clamps
+    (binpack._offering_value_ok, the capacity-type test of the
+    precompute)."""
+    W = masks.shape[-1]
+    word = torch.where(idx >= 0, idx // 32, 0).clamp(max=W - 1)
     bit = torch.where(idx >= 0, idx % 32, 0)
     has = (masks[:, word.long()] >> bit[None, :, :]) & 1
     return torch.where(idx[None, :, :] >= 0, has == 1, True)

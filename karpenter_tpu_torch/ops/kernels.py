@@ -1,7 +1,7 @@
-"""Hand-written CUDA kernels of the provisioning solve, their loader, their
+"""Hand-written CUDA kernels of the feasibility tensors, their loader, their
 wrappers and their plain PyTorch versions.
 
-Four kernels (sources in ``csrc/``, built together into one shared library
+Six kernels (sources in ``csrc/``, built together into one shared library
 by one nvcc call for sm_90a at first use and loaded through ctypes):
 
 - ``combine_compat``       (K1): template x group compatibility [M, G] and
@@ -10,7 +10,10 @@ by one nvcc call for sm_90a at first use and loaded through ctypes):
   int16 pods-per-node [G, M, T] and zone admission [G, M, Z];
 - ``exist_feasibility``    (K3): exist_ok / exist_cap [G, N];
 - ``row_splice``           (B3): a dirty row span of the resident
-  existing-node buffers, overwritten in place from one staged upload.
+  existing-node buffers, overwritten in place from one staged upload;
+- ``fits_matrix``          (B5a): the int32 resource fit [A, B];
+- ``offering_compat``      (B5b): "any available offering admitted by the
+  zone and capacity-type masks" [B, T].
 
 Each wrapper takes the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device, or raises ``KernelError``: there is no
@@ -41,7 +44,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("combine_compat", "catalog_feasibility", "exist_feasibility",
-           "row_splice")
+           "row_splice", "fits_matrix", "offering_compat")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -55,6 +58,8 @@ _ARGTYPES = {
     "catalog_feasibility": [_VP] * 20 + [_I] * 12 + [_VP] * 4,
     "exist_feasibility": [_VP] * 13 + [_I] * 5 + [_VP] * 3,
     "row_splice": [_VP] * 3 + [_I] + [_VP],
+    "fits_matrix": [_VP] * 2 + [_I] * 3 + [_VP] * 2,
+    "offering_compat": [_VP] * 4 + [_I] * 7 + [_VP] * 2,
 }
 
 
@@ -294,8 +299,8 @@ def catalog_feasibility_plain(cmb: Enc, compat_tm: torch.Tensor, it: Enc,
     it_compat = it_compat.T.reshape(M, G, T).permute(1, 0, 2)  # [G, M, T]
     zone_adm = feas.value_bit_ok(cmb.mask[:, zone_key, :],
                                  zone_values[None, :])[:, 0, :]  # [MG, Z]
-    cap_bit_ok = feas.value_bit_ok(cmb.mask[:, captype_key, :],
-                                   off_captype)                # [MG, T, O]
+    cap_bit_ok = feas.value_bit_ok_clamped(cmb.mask[:, captype_key, :],
+                                           off_captype)        # [MG, T, O]
     zmatch = off_zone[None, :, :, None] == zone_values[None, None, None, :]
     off_ok_z = torch.any(off_available[None, :, :, None] & zmatch
                          & cap_bit_ok[:, :, :, None], dim=2)   # [MG, T, Z]
@@ -506,3 +511,52 @@ def row_splice_staged(bufs, staged, start: int) -> None:
                                      for off in offsets))
     count = (ctypes.c_ulonglong * n)(*nbytes)
     _launch("row_splice", dstage.device, dst, src, count, n)
+
+
+# --------------------------------------------------------------------------
+# B5a fits_matrix, B5b offering_compat
+# --------------------------------------------------------------------------
+
+def fits_matrix(requests: torch.Tensor, available: torch.Tensor
+                ) -> torch.Tensor:
+    """requests int32 [B, R] x available int32 [A, R] -> bool [A, B]: all
+    over r of (req <= 0 or req <= avail)."""
+    if not _on_cuda(requests):
+        return feas.fits_matrix(requests, available)
+    dev = requests.device
+    B, R = requests.shape
+    A = available.shape[0]
+    ptrs = [_check("requests", requests, torch.int32, (B, R), dev),
+            _check("available", available, torch.int32, (A, R), dev)]
+    out = torch.empty((A, B), dtype=torch.bool, device=dev)
+    if A and B:
+        _launch("fits_matrix", dev, *ptrs, A, B, R, out.data_ptr())
+    return out
+
+
+def offering_compat(mask_b: torch.Tensor, zone_key: int, captype_key: int,
+                    off_zone: torch.Tensor, off_captype: torch.Tensor,
+                    off_available: torch.Tensor) -> torch.Tensor:
+    """mask_b int32 [B, K, W] (uint32 bits), off_zone / off_captype int32
+    [T, O] value indices (-1 == unconstrained), off_available bool [T, O]
+    -> bool [B, T]: does any available offering of type t have a zone and
+    a capacity type that row b admits."""
+    if not _on_cuda(mask_b):
+        return feas.offering_compat(mask_b, zone_key, captype_key, off_zone,
+                                     off_captype, off_available)
+    dev = mask_b.device
+    B, K, W = mask_b.shape
+    T, O = off_zone.shape
+    for name, key in (("zone_key", zone_key), ("captype_key", captype_key)):
+        if not 0 <= key < K:
+            raise ValueError(f"offering_compat: {name} {key} outside "
+                             f"[0, {K})")
+    ptrs = [_check("mask_b", mask_b, torch.int32, (B, K, W), dev),
+            _check("off_zone", off_zone, torch.int32, (T, O), dev),
+            _check("off_captype", off_captype, torch.int32, (T, O), dev),
+            _check("off_available", off_available, torch.bool, (T, O), dev)]
+    out = torch.empty((B, T), dtype=torch.bool, device=dev)
+    if B and T:
+        _launch("offering_compat", dev, *ptrs, B, T, K, W, O, zone_key,
+                captype_key, out.data_ptr())
+    return out

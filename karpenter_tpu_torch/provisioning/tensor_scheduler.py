@@ -228,6 +228,18 @@ def _ordered_union(its_lists) -> "Tuple[List[InstanceType], Dict[str, int]]":
     return catalog, it_index
 
 
+def catalog_cache_token(nodepools, instance_types) -> tuple:
+    """Precomputed catalog cache key for callers whose catalog is immutable
+    for their lifetime (a disruption snapshot, the streaming disruption
+    state): hashing 2k instance types per solve is pure overhead when the
+    owner guarantees no in-place mutation. Uses build_problem's union order
+    (_ordered_union; pools with no instance types contribute nothing either
+    way)."""
+    catalog, _ = _ordered_union(
+        instance_types.get(np_.name, []) for np_ in nodepools)
+    return _catalog_cache_key(catalog)
+
+
 class TensorNodeClaim:
     """A launch decision produced by the tensor packer; interface-compatible
     with provisioning.scheduler.InFlightNodeClaim for downstream consumers."""

@@ -196,3 +196,99 @@ def test_pods_per_node():
                               torch.from_numpy(req))
     same(jfeas.pods_per_node(alloc, overhead, req), got)
     assert (got[:, 2] == 0).all() and (got[0] == 2**30).any()
+
+
+# -- value indices at and past 32 * W ----------------------------------------
+#
+# The reference reads a mask word at a value index in two ways. Its
+# feasibility.offering_compat (and the precompute's zone admission) gather
+# with jnp.take_along_axis / jnp.take, whose out-of-range fill for uint32 is
+# all ones: such an index is admitted. The precompute's capacity-type test
+# (binpack._offering_value_ok) indexes masks[:, word], which JAX clamps to
+# the last word. The port's value_bit_ok / value_bit_ok_clamped give each.
+
+def _offering_compat_both(mask, zone_key, captype_key, off_zone, off_ct,
+                          off_avail):
+    mask = np.asarray(mask, np.uint32)
+    args = [np.asarray(a, np.int32) for a in (off_zone, off_ct)] + [
+        np.asarray(off_avail, bool)]
+    want = jfeas.offering_compat(mask, zone_key, captype_key, *args)
+    got = tfeas.offering_compat(torch.from_numpy(mask.view(np.int32)),
+                                zone_key, captype_key,
+                                *map(torch.from_numpy, args))
+    same(want, got)
+    return got
+
+
+def test_offering_compat_out_of_range_index_is_admitted():
+    """A zone index of 32 * W against an all-zero mask: the reference
+    admits it (its fill), where the port used to raise IndexError."""
+    mask = np.zeros((1, 2, 1))
+    got = _offering_compat_both(mask, 0, 1, [[32]], [[-1]], [[True]])
+    assert got.tolist() == [[True]]
+    # in range, the same mask admits nothing; past the word boundary of a
+    # wider mask, the capacity-type key too
+    got = _offering_compat_both(mask, 0, 1, [[31]], [[-1]], [[True]])
+    assert got.tolist() == [[False]]
+    mask = np.zeros((2, 2, 2))
+    mask[1, 0, 1] = 1 << 3
+    got = _offering_compat_both(mask, 0, 1, [[35, 35], [64, 35]],
+                                [[-1, 70], [64, 0]],
+                                [[True, True], [True, False]])
+    assert got.tolist() == [[False, True], [True, True]]
+
+
+@pytest.mark.parametrize("W", [1, 2, 3])
+def test_offering_compat_random_indices_straddle_words(W):
+    rng = np.random.default_rng(W)
+    B, K, T, O = 9, 4, 23, 5
+    mask = rng.integers(0, 2**32, (B, K, W), dtype=np.uint64)
+    vals = lambda: rng.integers(-1, 32 * W + 9, (T, O))  # noqa: E731
+    got = _offering_compat_both(mask, 1, 3, vals(), vals(),
+                                rng.random((T, O)) < 0.6)
+    assert got.any() and not got.all()
+
+
+def test_capacity_type_test_clamps_as_the_precompute_does():
+    """The precompute's capacity-type test reads an index past 32 * W from
+    the last word (binpack._offering_value_ok), not as admitted."""
+    import jax.numpy as jnp
+    from karpenter_tpu.ops import binpack as jbinpack
+    rng = np.random.default_rng(4)
+    W = 2
+    mask = rng.integers(0, 2**32, (7, 3, W), dtype=np.uint64).astype(
+        np.uint32)
+    idx = rng.integers(-1, 32 * W + 40, (11, 4)).astype(np.int32)
+    want = jbinpack._offering_value_ok(jnp.asarray(mask), 1,
+                                       jnp.asarray(idx))
+    masks = torch.from_numpy(mask.view(np.int32))[:, 1, :]
+    same(want, tfeas.value_bit_ok_clamped(masks, torch.from_numpy(idx)))
+    filled = tfeas.value_bit_ok(masks, torch.from_numpy(idx))
+    assert not torch.equal(filled, tfeas.value_bit_ok_clamped(
+        masks, torch.from_numpy(idx)))
+
+
+def test_precompute_with_out_of_range_values_matches_reference():
+    """The whole precompute (K2's plain path) on a problem whose last zone
+    and some capacity-type values lie past the mask words: zone admission
+    fills, the capacity-type test clamps, as in the reference."""
+    import dataclasses
+    from karpenter_tpu.ops import binpack as jbinpack
+    from karpenter_tpu_torch.ops import binpack as tbinpack
+    from test_torch_support import JAX, build_problem, restricted_workload
+    _, jp = build_problem(JAX, restricted_workload(JAX))
+    W = jp.template_enc.mask.shape[-1]
+    zone_values = jp.zone_values.copy()
+    off_zone = jp.off_zone.copy()
+    off_zone[off_zone == zone_values[-1]] = 32 * W + 3
+    zone_values[-1] = 32 * W + 3
+    off_captype = jp.off_captype.copy()
+    off_captype[::3, ::2] = 32 * W + 33
+    jp = dataclasses.replace(jp, zone_values=zone_values, off_zone=off_zone,
+                             off_captype=off_captype, device_cache=None)
+    want = jbinpack.precompute(jp)
+    got = tbinpack.precompute(tbinpack.problem_from_numpy(jp), device="cpu")
+    for name in ("it_ok_z", "zone_adm", "ppn"):
+        np.testing.assert_array_equal(getattr(want, name), getattr(got, name),
+                                      err_msg=name)
+    assert want.zone_adm[..., -1].all()

@@ -41,6 +41,15 @@ ts = TensorScheduler([chip_smoke.default_pool()], {{"default": catalog}},
 results = ts.solve(pods)
 assert ts.fallback_reason == "" and ts.partition == (len(pods), 0)
 assert results.new_nodeclaims
+
+# the provisioner and disruption loops of chip_smoke.py at a small fleet
+env = chip_smoke.stuck_fleet("cpu", 12, "dscale")
+ctrl = chip_smoke.new_controller(env)
+_, cmd = chip_smoke.controller_pass(ctrl)
+assert cmd[1] == ["dscale-node-00011"], cmd
+_, cmd, _, _, _, _ = chip_smoke.multi_consolidation(
+    chip_smoke.underutilized_fleet("cpu", 12), repeats=0)
+assert cmd.candidates
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "karpenter_tpu"))
 assert not bad, bad

@@ -185,3 +185,42 @@ def test_row_splice_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         kernels.row_splice([torch.zeros((3, 8), dtype=torch.int32).T],
                            [np.zeros((2, 3), np.int32)], 0)
+
+
+# -- B5a fits_matrix, B5b offering_compat ------------------------------------
+
+@pytest.mark.parametrize("A,B,R", [(1, 1, 1), (31, 33, 4), (64, 17, 3)])
+def test_fits_matrix_wrapper_matches_jax_on_the_cpu(A, B, R):
+    from karpenter_tpu.ops import feasibility as jfeas
+    rng = np.random.default_rng(A * B)
+    req = rng.integers(-3, 60, (B, R)).astype(np.int32)
+    req[0] = 0
+    avail = rng.integers(-5, 80, (A, R)).astype(np.int32)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.fits_matrix(torch.from_numpy(req), torch.from_numpy(avail))
+    assert kernels.LAUNCHES == before
+    np.testing.assert_array_equal(np.asarray(jfeas.fits_matrix(req, avail)),
+                                  got.numpy())
+
+
+@pytest.mark.parametrize("W", [1, 2, 5])
+def test_offering_compat_wrapper_matches_jax_on_the_cpu(W):
+    """Value indices from -1 to past 32 * W: the 32-bit word boundaries and
+    the out-of-range fill."""
+    from karpenter_tpu.ops import feasibility as jfeas
+    rng = np.random.default_rng(W)
+    B, K, T, O = 13, 6, 40, 8
+    mask = rng.integers(0, 2**32, (B, K, W), dtype=np.uint64).astype(
+        np.uint32)
+    off_zone, off_ct = (rng.integers(-1, 32 * W + 33, (T, O)).astype(
+        np.int32) for _ in range(2))
+    off_avail = rng.random((T, O)) < 0.5
+    before = dict(kernels.LAUNCHES)
+    got = kernels.offering_compat(
+        torch.from_numpy(mask.view(np.int32)), 2, 5,
+        torch.from_numpy(off_zone), torch.from_numpy(off_ct),
+        torch.from_numpy(off_avail))
+    assert kernels.LAUNCHES == before
+    want = jfeas.offering_compat(mask, 2, 5, off_zone, off_ct, off_avail)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    assert got.any() and not got.all()

@@ -108,6 +108,64 @@ def test_catalog_feasibility_matches_plain(Z):
     assert (out[0] != 0).any() and (out[0] == 0).any()
 
 
+def test_catalog_feasibility_out_of_range_values_match_plain():
+    """Zone and capacity-type value indices at and past 32 * W: the kernel
+    reads no word past the row, admits the zone (jnp.take's fill) and reads
+    the capacity type's last word (the plain gather's clamp), as the plain
+    version does."""
+    rng = np.random.default_rng(3)
+    K, W, M, G, T, R, Z, O = 4, 2, 1, 5, 40, 2, 3, 6
+    template, group = rand_enc(rng, M, K, W), rand_enc(rng, G, K, W)
+    cmb, compat_tm = kernels.combine_compat_plain(
+        template, group, flags(rng, (K,), 0.5))
+    cmb.mask[:, :2, :] = i32(rng.integers(0, 2**31, (M * G, 2, W)))
+    cmb.defined[:] = False
+    zone_values = i32([1, 32 * W, 32 * W + 7])
+    off_zone = zone_values.cpu()[rng.integers(0, Z, (T, O))].cuda()
+    off_captype = i32(rng.choice([-1, 0, 33, 32 * W, 32 * W + 31], (T, O)))
+    args = (cmb, torch.ones_like(compat_tm), rand_enc(rng, T, K, W),
+            i32(rng.integers(1, 5, (G, R))), i32(np.zeros((M, R))),
+            i32(rng.integers(10, 40, (T, R))), flags(rng, (M, T), 1.0),
+            off_zone, off_captype, flags(rng, (T, O), 0.8), zone_values,
+            flags(rng, (G, M), 1.0))
+    kw = dict(zone_key=0, captype_key=1)
+    out = kernels.catalog_feasibility(*args, **kw)
+    torch.cuda.synchronize()
+    assert_same(out, kernels.catalog_feasibility_plain(*args, **kw))
+    assert out[2][:, :, 1:].all()
+
+
+@pytest.mark.parametrize("A,B,R", [(1, 1, 1), (33, 17, 4), (8192, 120, 4),
+                                   (100, 300, 7)])
+def test_fits_matrix_matches_plain(A, B, R):
+    rng = np.random.default_rng(A + B)
+    req = rng.integers(-3, 60, (B, R))
+    req[: max(1, B // 4)] = 0                 # zero requests always fit
+    args = (i32(req), i32(rng.integers(-5, 80, (A, R))))
+    before = kernels.LAUNCHES["fits_matrix"]
+    out = kernels.fits_matrix(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fits_matrix"] == before + 1
+    assert_same((out,), (feas.fits_matrix(*args),))
+    assert out.any()
+
+
+@pytest.mark.parametrize("W", [1, 2, 64])
+def test_offering_compat_matches_plain(W):
+    """Value indices from -1 to past 32 * W, across word boundaries."""
+    rng = np.random.default_rng(W)
+    B, K, T, O = 37, 5, 301, 8
+    mask = i32(rng.integers(-2**31, 2**31, (B, K, W)))
+    vals = lambda: i32(rng.integers(-1, 32 * W + 40, (T, O)))  # noqa: E731
+    args = (mask, 2, 4, vals(), vals(), flags(rng, (T, O), 0.6))
+    before = kernels.LAUNCHES["offering_compat"]
+    out = kernels.offering_compat(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["offering_compat"] == before + 1
+    assert_same((out,), (feas.offering_compat(*args),))
+    assert out.any() and not out.all()
+
+
 def test_exist_feasibility_matches_plain():
     rng = np.random.default_rng(1)
     K, W, G, N, R = 9, 64, 13, 300, 3
@@ -148,9 +206,9 @@ def test_precompute_cuda_matches_cpu(name):
     kernels.reset_launches()
     got = binpack.precompute(problem, device="cuda")
     has_exist = problem.exist_enc is not None
-    assert kernels.LAUNCHES == {"combine_compat": 1, "catalog_feasibility": 1,
-                                "exist_feasibility": int(has_exist),
-                                "row_splice": 0}
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0) | {
+        "combine_compat": 1, "catalog_feasibility": 1,
+        "exist_feasibility": int(has_exist)}
     assert_tensors_equal(binpack.precompute(problem, device="cpu"), got)
     if has_exist:
         ok, cap = binpack.exist_delta(problem, device="cuda")
@@ -233,6 +291,6 @@ def test_mesh_precompute_on_one_card_matches_cpu():
     m = tmesh.make_solver_mesh(devices=[torch.device("cuda", 0)] * 8)
     kernels.reset_launches()
     got = tmesh.sharded_precompute(problem, m)
-    assert kernels.LAUNCHES == {"combine_compat": 8, "catalog_feasibility": 8,
-                                "exist_feasibility": 4, "row_splice": 0}
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0) | {
+        "combine_compat": 8, "catalog_feasibility": 8, "exist_feasibility": 4}
     assert_tensors_equal(binpack.precompute(problem, device="cpu"), got)

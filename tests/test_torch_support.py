@@ -547,3 +547,259 @@ class ChurnPair:
         kinds = {root: ts.encode_kind for root, ts in schedulers.items()}
         assert kinds[JAX] == kinds[PORT], kinds
         return kinds[PORT]
+
+
+# --------------------------------------------------------------------------
+# the provisioner and disruption loops: a live cluster per package, its
+# objects fabricated directly (no controller roster), so both packages see
+# the same store from the same calls
+# --------------------------------------------------------------------------
+
+def live_pkg(root: str) -> SimpleNamespace:
+    imp = lambda m: importlib.import_module(f"{root}.{m}")  # noqa: E731
+    return SimpleNamespace(
+        provisioner=imp("provisioning.provisioner"),
+        controller=imp("disruption.controller"),
+        helpers=imp("disruption.helpers"), methods=imp("disruption.methods"),
+        prefix=imp("disruption.prefix"), validation=imp("disruption.validation"),
+        policy=imp("api.policy"), types=imp("cloudprovider.types"))
+
+
+class CatalogProvider:
+    """The one cloud-provider call the provisioner and the disruption
+    methods make: each pool's instance types (``its`` by pool name, or one
+    list for every pool)."""
+
+    def __init__(self, its):
+        self.its = its
+
+    def get_instance_types(self, nodepool):
+        if isinstance(self.its, dict):
+            return self.its.get(nodepool.name, [])
+        return self.its
+
+
+class LiveEnv:
+    """Store + informers + cluster state on a FakeClock, a Provisioner (the
+    port's on the CPU) and a DisruptionController over them. Nodes, claims
+    and pods are created straight into the store under the names given, so
+    two packages' envs hold the same objects."""
+
+    def __init__(self, root: str, its, pools=(), spot_to_spot=False):
+        k, w, lv = pkg(root), warm_pkg(root), live_pkg(root)
+        self.root, self.k, self.w, self.lv = root, k, w, lv
+        self.clock = w.clock.FakeClock()
+        self.store = w.store.Store(self.clock)
+        self.cluster = w.cluster.Cluster(self.store, self.clock)
+        w.informers.wire_informers(self.store, self.cluster)
+        self.provider = CatalogProvider(its)
+        self.unavailable = w.unavailable.UnavailableOfferings(
+            clock=self.clock)
+        kw = {"device": "cpu"} if root == PORT else {}
+        self.provisioner = lv.provisioner.Provisioner(
+            self.store, self.cluster, self.provider, self.clock,
+            unavailable=self.unavailable, **kw)
+        self.queue = lv.controller.OrchestrationQueue(self.store,
+                                                      self.cluster, self.clock)
+        self.disruption = lv.controller.DisruptionController(
+            self.store, self.cluster, self.provisioner, self.queue,
+            self.clock, spot_to_spot_enabled=spot_to_spot)
+        for p in pools:
+            self.store.create(p)
+
+    def pool(self, requirements=()):
+        """consolidation_test.go's default pool: WhenEmptyOrUnderutilized,
+        a 100% budget, consolidateAfter 0."""
+        p = nodepool(self.root, "default", requirements=requirements)
+        p.spec.disruption.budgets = [self.k.nodepool.Budget(nodes="100%")]
+        p.spec.disruption.consolidate_after = 0.0
+        self.store.create(p)
+        return p
+
+    def node(self, name, it, capacity_type="on-demand", zone="test-zone-a",
+             alloc=None, initialized=True, consolidatable=True,
+             drifted=False):
+        """expectations.make_nodeclaim_and_node: a claim carrying its pool's
+        hash (or the Drifted condition) and a linked node; an uninitialized
+        node keeps a startup taint. ``alloc``: quantities as strings, or
+        resources already parsed."""
+        k, L, o = self.k, self.k.labels, self.k.objects
+        nc_mod = self.w.nodeclaim
+        alloc = alloc or {"cpu": "32", "memory": "128Gi", "pods": "110"}
+        if any(isinstance(v, str) for v in alloc.values()):
+            alloc = k.res.parse_list(alloc)
+        labels = {L.NODEPOOL_LABEL_KEY: "default",
+                  L.LABEL_INSTANCE_TYPE: it if isinstance(it, str)
+                  else it.name,
+                  L.CAPACITY_TYPE_LABEL_KEY: capacity_type,
+                  L.LABEL_TOPOLOGY_ZONE: zone, L.LABEL_HOSTNAME: name}
+        annotations = {}
+        live_pool = self.store.get(k.nodepool.NodePool, "default")
+        if live_pool is not None and not drifted:
+            annotations[L.NODEPOOL_HASH_ANNOTATION_KEY] = \
+                live_pool.static_hash()
+            annotations[L.NODEPOOL_HASH_VERSION_ANNOTATION_KEY] = \
+                k.nodepool.NODEPOOL_HASH_VERSION
+        taints = [] if initialized else [
+            o.Taint(key="fab.test/uninitialized", value="true")]
+        pid = f"fab://{name}"
+        nc = nc_mod.NodeClaim(
+            metadata=o.ObjectMeta(name=name, labels=dict(labels),
+                                  annotations=annotations),
+            spec=nc_mod.NodeClaimSpec(startup_taints=list(taints)),
+            status=nc_mod.NodeClaimStatus(provider_id=pid, node_name=name,
+                                          capacity=dict(alloc),
+                                          allocatable=dict(alloc)))
+        now = self.clock.now()
+        conds = [nc_mod.COND_LAUNCHED, nc_mod.COND_REGISTERED]
+        if initialized:
+            conds.append(nc_mod.COND_INITIALIZED)
+        if consolidatable:
+            conds.append(nc_mod.COND_CONSOLIDATABLE)
+        if drifted:
+            conds.append(nc_mod.COND_DRIFTED)
+        for cond in conds:
+            nc.conditions.set_true(cond, now=now)
+        node_labels = dict(labels)
+        if initialized:
+            node_labels[L.NODE_INITIALIZED_LABEL_KEY] = "true"
+        node = o.Node(
+            metadata=o.ObjectMeta(name=name, labels=node_labels,
+                                  finalizers=[L.TERMINATION_FINALIZER]),
+            spec=o.NodeSpec(provider_id=pid, taints=list(taints)),
+            status=o.NodeStatus(capacity=dict(alloc),
+                                allocatable=dict(alloc)))
+        self.store.create(nc)
+        self.store.create(node)
+        return nc, node
+
+    def bind(self, node_name, name, cpu="100m", memory="128Mi", labels=None):
+        p = pod(self.root, name, cpu, memory, labels)
+        p.spec.node_name = node_name
+        p.status.phase = "Running"
+        self.store.create(p)
+        return p
+
+    def pending(self, name, cpu="100m", memory="128Mi"):
+        p = pod(self.root, name, cpu, memory)
+        self.store.create(p)
+        return p
+
+    def provision(self):
+        """One provisioning pass, run once the batcher window has passed:
+        the first reconcile opens the window, the clock steps past its idle
+        time, the second reconcile solves."""
+        self.provisioner.reconcile()
+        self.clock.step(self.lv.provisioner.BATCH_IDLE_SECONDS + 0.1)
+        return self.provisioner.reconcile()
+
+
+def underutilized_fleet(root: str, n: int) -> LiveEnv:
+    """chip_smoke.py's underutilized_fleet (BASELINE config 4) at n nodes:
+    consolidatable 4-cpu amd64 nodes over the kwok catalog, each holding
+    one 200m / 128Mi pod."""
+    its = pkg(root).kwok.construct_instance_types()
+    env = LiveEnv(root, its)
+    env.pool()
+    big = next(it for it in its if it.capacity.get("cpu") == 4000
+               and "amd64-linux" in it.name)
+    for i in range(n):
+        env.node(f"bench-node-{i:05d}", big, alloc=big.allocatable())
+    for i in range(n):
+        env.bind(f"bench-node-{i:05d}", f"bench-pod-{i}", cpu="200m")
+    env.clock.step(600)
+    return env
+
+
+def stuck_fleet(root: str, n: int, prefix: str = "single") -> LiveEnv:
+    """chip_smoke.py's stuck_fleet (bench.py's single-node and
+    disruption-scale shape) at n nodes: an on-demand catalog, n - 1 nodes
+    each holding one pod that fits nowhere else, and one last node whose
+    two small pods fit the others' headroom."""
+    k = pkg(root)
+    its = k.kwok.construct_instance_types()
+    for it in its:
+        it.offerings = k.kwok.Offerings(
+            [o for o in it.offerings
+             if o.capacity_type == k.labels.CAPACITY_TYPE_ON_DEMAND])
+    env = LiveEnv(root, its)
+    env.pool()
+
+    def od_price(it):
+        return min((o.price for o in it.offerings if o.available),
+                   default=float("inf"))
+
+    ref = next(it for it in its
+               if it.capacity.get("cpu") == 4000 and "amd64-linux" in it.name)
+    stuck = ref.allocatable()["cpu"] - 300
+    big = min((it for it in its if it.allocatable().get("cpu", 0) >= stuck),
+              key=od_price)
+    small = min((it for it in its if it.capacity.get("cpu") == 1000),
+                key=od_price)
+    for i in range(n):
+        it = big if i < n - 1 else small
+        env.node(f"{prefix}-node-{i:05d}", it, alloc=it.allocatable())
+    for i in range(n - 1):
+        env.bind(f"{prefix}-node-{i:05d}", f"{prefix}-pod-{i}",
+                 cpu=f"{stuck}m")
+    for j in range(2):
+        env.bind(f"{prefix}-node-{n - 1:05d}", f"{prefix}-winner-{j}",
+                 cpu="200m")
+    env.clock.step(600)
+    return env
+
+
+def provisioning_digest(env: LiveEnv) -> tuple:
+    """What provisioning passes left behind, by name: the NodeClaims they
+    created (their numbered names aside: pool, requirements, requests) with
+    the pods nominated to each, the pods bound to existing nodes, and the
+    last pass's pod errors."""
+    k = env.k
+    nominated: dict = {}
+    for pod_key, nc_name in env.provisioner.nominations.items():
+        nominated.setdefault(nc_name, []).append(pod_key)
+    claims = sorted(
+        (nc.metadata.labels.get(k.labels.NODEPOOL_LABEL_KEY, ""),
+         tuple(sorted((r.key, r.operator, tuple(sorted(r.values)))
+                      for r in nc.spec.requirements)),
+         tuple(sorted(nc.spec.resources_requests.items())),
+         tuple(sorted(nominated.get(nc.name, ()))))
+        for nc in env.store.list(env.w.nodeclaim.NodeClaim)
+        if not nc.status.provider_id)
+    bound = sorted((p.metadata.name, p.spec.node_name)
+                   for p in env.store.list(k.objects.Pod)
+                   if p.spec.node_name)
+    results = env.provisioner.last_results
+    by_uid = {p.uid: p.metadata.name
+              for p in env.store.list(k.objects.Pod)}
+    errors = sorted((by_uid.get(u, u), msg)
+                    for u, msg in (results.pod_errors.items()
+                                   if results is not None else ()))
+    return claims, bound, errors
+
+
+def command_summary(env: LiveEnv, cmd, results=None) -> dict:
+    """A disruption command by name: decision, candidates, replacement
+    instance-type options and the simulation's pod errors by pod name."""
+    errors = []
+    if results is not None and getattr(results, "pod_errors", None):
+        names = {p.uid: p.metadata.name
+                 for p in env.store.list(env.k.objects.Pod)}
+        errors = sorted(names.get(u, u) for u in results.pod_errors)
+    return {"decision": cmd.decision,
+            "candidates": [c.name for c in cmd.candidates],
+            "replacements": [[it.name for it in r.instance_type_options]
+                             for r in cmd.replacements],
+            "pod_errors": errors}
+
+
+class MinValuesReq:
+    """A pool template requirement with minValues (expectations.py's
+    MinValuesReq: NodeSelectorRequirement is frozen and has no min_values;
+    template ingestion reads it with getattr)."""
+
+    def __init__(self, key: str, operator: str, values=(), min_values=None):
+        self.key = key
+        self.operator = operator
+        self.values = tuple(values)
+        self.min_values = min_values
