@@ -39,6 +39,14 @@ two kernels with no caller on any path (fits_matrix, offering_compat) are
 held against their plain versions at the solve's shapes and count no
 launches.
 
+K1-K3 and row_splice are also timed alone (``kernel_ms``: back-to-back
+launches on prepared inputs, replayed from a CUDA graph; ``cold_ms``: one
+launch after a 128 MB buffer is written, so the inputs come from HBM)
+beside their bound, and K2 and K3 once more at the disruption encode's
+shapes (G padded to 8, W = 8), held against their plain versions there
+too. The register tile each K2 / K3 launch of the paths used is printed
+by path and shape (``join_plans``).
+
 Each phase prints JSON lines. The line before last is the kernel table; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without CUDA it exits non-zero before printing a result.
@@ -310,6 +318,65 @@ def _time_ms(fn, runs: int = KERNEL_RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _kernel_ms(launch, launches: int = KERNEL_RUNS, replays: int = 10
+               ) -> float:
+    """A kernel's own time: ``launches`` back-to-back launches of it
+    (kernels.launcher: no checks, allocation or count) captured in one CUDA
+    graph, so the host's launch cost does not pace them; CUDA events around
+    ``replays`` replays of the graph, per launch."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def _cold_ms(launch, flush, runs: int = KERNEL_RUNS) -> float:
+    """Median time of one launch after ``flush`` (a device buffer larger
+    than the 50 MB L2) has been written, so the inputs come from HBM. The
+    write keeps the card busy while the host enqueues the launch, so the
+    events time the kernel and not the host."""
+    import torch
+    launch()
+    times = []
+    for i in range(runs):
+        flush.fill_(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _device_ms(prof: dict, name: str):
+    """Device ms per launch of the kernel ``name`` in a _profile() result,
+    over every instantiation of a template kernel (whose names start with
+    their return type), or None when the trace holds none."""
+    hits = [v for k, v in prof["device_ms_by_name"].items()
+            if f"{name}_kernel" in k.split("(")[0]]
+    n = sum(count for _, count in hits)
+    return sum(ms for ms, _ in hits) / n if n else None
+
+
 def _flat(out) -> list:
     """Nested tuples of tensors (a wrapper's inputs or outputs) as one flat
     list."""
@@ -575,6 +642,106 @@ def _random_rows(rng, like, rows: int):
 
 #: the feasibility kernels of the precompute (K1-K3)
 FEASIBILITY = ("combine_compat", "catalog_feasibility", "exist_feasibility")
+
+#: the tile plan of every K2 / K3 launch since the last _reset_counts():
+#: (kernel, rows_a, rows_b, K, W, ra, rb, stages) -> launches
+TILES: collections.Counter = collections.Counter()
+
+
+def _record_tiles(kernels) -> None:
+    """Count in TILES the plan (kernels.join_plan) of every K2 / K3 launch
+    from here on: the wrappers look join_plan up at each launch."""
+    plan = kernels.join_plan
+
+    def recording(kind, rows_a, rows_b, K, W, **kw):
+        p = plan(kind, rows_a, rows_b, K, W, **kw)
+        TILES[(kind, rows_a, rows_b, K, W, p.ra, p.rb, p.stages)] += 1
+        return p
+    kernels.join_plan = recording
+
+
+def _reset_counts(kernels) -> None:
+    kernels.reset_launches()
+    TILES.clear()
+
+
+def _tiles(launches: dict) -> list:
+    """TILES as [kernel, rows_a, rows_b, K, W, ra, rb, stages, launches]
+    rows, checked against the path's launch counts."""
+    for name in FEASIBILITY[1:]:
+        n = sum(v for k, v in TILES.items() if k[0] == name)
+        assert n == launches[name], f"{name}: {n} plans, {launches[name]} " \
+                                    f"launches"
+    return [[*k, v] for k, v in sorted(TILES.items())]
+
+
+def _alone(name: str, inputs, kw: dict, bound_ms: float, flush) -> dict:
+    """A kernel's own time on prepared inputs (kernels.launcher): kernel_ms
+    (hot L2), cold_ms (after ``flush``) and each one's share of the
+    bound."""
+    from karpenter_tpu_torch.ops import kernels
+    launch, _ = kernels.launcher(name, *inputs, **kw)
+    hot, cold = _kernel_ms(launch), _cold_ms(launch, flush)
+    return {"kernel_ms": hot, "cold_ms": cold, "share": bound_ms / hot,
+            "cold_share": bound_ms / cold}
+
+
+def join_holds(problem, dev, flush) -> dict:
+    """K2 and K3 at one problem's shapes on the card: each held equal to
+    its plain version on the same device inputs (K1's output feeds K2), the
+    wrapper's and the kernel's own times, the bound and its share."""
+    import torch
+    from karpenter_tpu_torch.ops import binpack, kernels
+    args, statics = binpack.device_args(problem, binpack.ArgPlacer(dev))
+    (group, template, it, group_req, daemon, alloc, template_its, off_zone,
+     off_captype, off_avail, zone_values, allow_undef, tol_template,
+     exist, exist_avail, tol_exist) = args
+    assert statics["has_exist"], "the problem has no existing nodes"
+    cmb, compat_tm = kernels.combine_compat(template, group, allow_undef)
+    kw = dict(zone_key=statics["zone_key"],
+              captype_key=statics["captype_key"])
+    G, K, W = group.mask.shape
+    M, T, N = template.mask.shape[0], it.mask.shape[0], exist.mask.shape[0]
+    R, O, Z = group_req.shape[1], off_zone.shape[1], zone_values.shape[0]
+    MG = M * G
+    k2_in = (cmb, compat_tm, it, group_req, daemon, alloc, template_its,
+             off_zone, off_captype, off_avail, zone_values, tol_template)
+    k3_in = (group, group_req, exist, exist_avail, tol_exist)
+    cases = {
+        "catalog_feasibility": (
+            k2_in, kw, kernels.catalog_feasibility,
+            kernels.catalog_feasibility_plain,
+            MG * T * (2 * K * W + 8 * K + 3 * R + 2 * O * Z),
+            kernels.join_plan("catalog_feasibility", T, MG, K, W, R=R, O=O,
+                              Wz=kernels.zone_pack_layout(Z)[1], Z=Z)),
+        "exist_feasibility": (
+            k3_in, {}, kernels.exist_feasibility,
+            kernels.exist_feasibility_plain,
+            G * N * (2 * K * W + 9 * K + 2 * R),
+            kernels.join_plan("exist_feasibility", N, G, K, W, R=R)),
+    }
+    out = {}
+    for name, (inputs, kw_, wrapper, plain, ops, plan) in cases.items():
+        got, want = wrapper(*inputs, **kw_), plain(*inputs, **kw_)
+        torch.cuda.synchronize()
+        equal, err = _compare(got, want)
+        assert equal, f"{name} at {problem_shape(G, M, T, N, K, W)}: " \
+                      f"kernel and plain version disagree (max abs err " \
+                      f"{err})"
+        moved = _nbytes(*inputs) + _nbytes(got)
+        bound_ms, bound_by = _bound(moved, ops)
+        out[name] = {"shape": problem_shape(G, M, T, N, K, W),
+                     "equal": equal, "max_abs_err": err,
+                     "ms": _time_ms(lambda: wrapper(*inputs, **kw_)),
+                     "plain_ms": _time_ms(lambda: plain(*inputs, **kw_)),
+                     **_alone(name, inputs, kw_, bound_ms, flush),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": moved, "ops": ops, "plan": plan._asdict()}
+    return out
+
+
+def problem_shape(G, M, T, N, K, W) -> dict:
+    return {"G": G, "M": M, "T": T, "N": N, "K": K, "W": W}
 
 
 # --------------------------------------------------------------------------
@@ -871,13 +1038,18 @@ def merged_spans(traces, n: int = 12) -> dict:
     return dict(sorted(total.items(), key=lambda kv: -kv[1])[:n])
 
 
+def disruption_encoding(env, candidates):
+    """One disruption encode of ``candidates`` over a fresh snapshot."""
+    from karpenter_tpu_torch.disruption.prefix import DisruptionSnapshot
+    return DisruptionSnapshot(env.cluster, env.provisioner).encoding_for(
+        candidates)
+
+
 def encoding_shapes(env, candidates) -> dict:
     """The tensor shapes of one disruption encode of ``candidates`` over a
     fresh snapshot (G is padded to a power of two of at least 8, N is the
     pow2 bucket of the packable nodes)."""
-    from karpenter_tpu_torch.disruption.prefix import DisruptionSnapshot
-    enc = DisruptionSnapshot(env.cluster, env.provisioner).encoding_for(
-        candidates)
+    enc = disruption_encoding(env, candidates)
     p = enc.problem
     G, K, W = p.group_enc.mask.shape
     return {"G": G, "M": p.template_enc.mask.shape[0],
@@ -1057,17 +1229,30 @@ def main() -> None:
             "bytes": c["bytes_in"] + _nbytes(out_k), "ops": c["ops"],
             "library_ms": None}
     for name in ("fits_matrix", "offering_compat"):
-        fn = checks[name]["fns"][0]
-        ms, n = next((v for k, v in _profile(fn)["device_ms_by_name"].items()
-                      if k.startswith(f"{name}_kernel")), (None, 0))
-        rows[name]["device_ms"] = ms / n if n else None
+        rows[name]["device_ms"] = _device_ms(
+            _profile(checks[name]["fns"][0]), name)
     rows["offering_compat"]["offerings_examined"] = examined
+    # K1-K3 alone: back-to-back launches on the inputs above, and one launch
+    # at a time after a 128 MB buffer (beyond the 50 MB L2) is written
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for name, (a, kw) in {"combine_compat": ((template, group, allow_undef),
+                                             {}),
+                          "catalog_feasibility": (k2_in, cat),
+                          "exist_feasibility": (k3_in, {})}.items():
+        rows[name].update(_alone(name, a, kw, rows[name]["bound_ms"],
+                                 flush))
+    rows["catalog_feasibility"]["plan"] = kernels.join_plan(
+        "catalog_feasibility", T, MG, K, W, R=R, O=O,
+        Wz=kernels.zone_pack_layout(Z)[1], Z=Z)._asdict()
+    rows["exist_feasibility"]["plan"] = kernels.join_plan(
+        "exist_feasibility", N, G, K, W, R=R)._asdict()
 
     # B3 row_splice: the rows of one exist shard of the warm mesh (N / 4 of
     # the padded node axis) in the seven resident leaves, from host blocks.
     # "ms" is the wrapper (pinned staging, one upload, one launch),
-    # "kernel_ms" the launch alone on staged rows; the plain version copies
-    # each host block into its slice, the library call each device block
+    # "kernel_ms" and "cold_ms" the kernel alone on staged rows (as K1-K3);
+    # the plain version copies each host block into its slice, the library
+    # call each device block
     mesh8 = make_solver_mesh(devices=[dev] * MESH_SLOTS)
     span = enc.shard_spans(N, mesh8.shape[PODS_GROUPS_AXIS])[CHURN_SHARD]
     leaves = list(exist) + [exist_avail]
@@ -1091,32 +1276,32 @@ def main() -> None:
             buf[span[0]:span[1]].copy_(b)
 
     prof = _profile(lambda: kernels.row_splice(bufs_k, blocks, span[0]))
-    ms, n = next((v for k, v in prof["device_ms_by_name"].items()
-                  if k.startswith("row_splice_kernel")), (None, 0))
     rows["row_splice"] = {
         "name": "row_splice", "route": "cuda",
         "source": "karpenter_tpu_torch/ops/csrc/row_splice.cu",
         "replaces": "karpenter_tpu/parallel/mesh.py:264", "launches": None,
         "max_abs_err": err, "equal": equal,
         "ms": _time_ms(lambda: kernels.row_splice(bufs_k, blocks, span[0])),
-        "kernel_ms": _time_ms(
-            lambda: kernels.row_splice_staged(bufs_k, staged, span[0])),
+        **_alone("row_splice", (bufs_k, staged, span[0]), {}, bound_ms,
+                 flush),
         "plain_ms": _time_ms(
             lambda: kernels.row_splice_plain(bufs_p, blocks, span[0])),
-        "device_ms": ms / n if n else None,
+        "device_ms": _device_ms(prof, "row_splice"),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": 2 * span_bytes, "ops": 0, "rows": span[1] - span[0],
         "library_ms": _time_ms(library)}
     _emit({"phase": "kernels_vs_plain", "kernels": [
         {"name": r["name"], "replaces": r["replaces"],
-         "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+         "ms": r["ms"], "kernel_ms": r.get("kernel_ms"),
+         "cold_ms": r.get("cold_ms"), "plain_ms": r["plain_ms"],
          "equal": r["equal"]} for r in rows.values()]})
 
     # 4 + 5. the main path: cold solve, then against existing nodes. Each
     # path below zeroes the launch counts just before it and reads them
     # just after
-    paths = {}
-    kernels.reset_launches()
+    paths, tiles = {}, {}
+    _record_tiles(kernels)
+    _reset_counts(kernels)
     runs = {}
     for label, state in (("cold", ()), ("existing_nodes", nodes)):
         _solve(ts_mod, pool, catalog, pods, state, DEVICE)  # warm-up
@@ -1138,6 +1323,7 @@ def main() -> None:
                "errors_by_kind": _errors_by_kind(pods, results),
                "phases_ms": phase_millis(trace) if trace else {}})
     paths["solve"] = dict(kernels.LAUNCHES)
+    tiles["solve"] = _tiles(paths["solve"])
 
     # device time and idle share of one solve of each kind, from a trace;
     # each kernel's device time per launch from the solve with nodes, which
@@ -1147,10 +1333,7 @@ def main() -> None:
             lambda: _solve(ts_mod, pool, catalog, pods, state, DEVICE))
         _emit({"phase": f"profile_{label}", **prof})
     for name in FEASIBILITY:
-        row = rows[name]
-        ms, n = next((v for k, v in prof["device_ms_by_name"].items()
-                      if k.startswith(f"{name}_kernel")), (None, 0))
-        row["device_ms"] = ms / n if n else None
+        rows[name]["device_ms"] = _device_ms(prof, name)
 
     # exist_delta on the card against the plain version
     ok_d, cap_d = binpack.exist_delta(problem_x, device=DEVICE)
@@ -1180,7 +1363,7 @@ def main() -> None:
     # once per pods_groups row)
     for label, m in (("1x1", make_solver_mesh()), ("4x2", mesh8)):
         rungs = _rungs()
-        kernels.reset_launches()
+        _reset_counts(kernels)
         _solve(ts_mod, pool, catalog, pods, nodes, None, mesh=m)  # warm-up
         best = None
         for _ in range(REPEATS - 1):
@@ -1189,6 +1372,7 @@ def main() -> None:
             if best is None or elapsed < best[0]:
                 best = (elapsed, TRACER.last(), results)
         paths[f"solve_mesh_{label}"] = dict(kernels.LAUNCHES)
+        tiles[f"solve_mesh_{label}"] = _tiles(paths[f"solve_mesh_{label}"])
         assert _rungs() == rungs, f"left the mesh rung: {_rungs()}"
         same = decision_digest(best[2], pods, "", (len(pods), 0)) == \
             decision_digest(runs["existing_nodes"], pods, "", (len(pods), 0))
@@ -1205,10 +1389,11 @@ def main() -> None:
     # 8. warm passes through one ProblemState on the card, each held to a
     # cold solve of the same inputs; the nodes are a fresh copy that the
     # windows change in place
-    kernels.reset_launches()
+    _reset_counts(kernels)
     cold_digests, recs = warm_churn(ts_mod, pool, catalog, pods,
                                     existing_nodes(catalog), span, DEVICE)
     paths["warm_churn"] = dict(kernels.LAUNCHES)
+    tiles["warm_churn"] = _tiles(paths["warm_churn"])
     _emit({"phase": "warm_churn_summary", "by_window": _summary(recs)})
 
     # 9. the same windows through the sharded ProblemState on an 8-slot
@@ -1216,11 +1401,12 @@ def main() -> None:
     # churned shard's rows and leaves three spans resident), held to a cold
     # mesh solve and to the single-device cold solve of each pass
     rungs = _rungs()
-    kernels.reset_launches()
+    _reset_counts(kernels)
     _, recs = warm_churn(ts_mod, pool, catalog, pods,
                          existing_nodes(catalog), span, DEVICE, mesh=mesh8,
                          cold_digests=cold_digests, phase="warm_churn_mesh")
     paths["warm_churn_mesh"] = dict(kernels.LAUNCHES)
+    tiles["warm_churn_mesh"] = _tiles(paths["warm_churn_mesh"])
     assert _rungs() == rungs, f"left the mesh rung: {_rungs()}"
     _emit({"phase": "warm_churn_mesh_summary", "mesh": repr(mesh8),
            "by_window": _summary(recs)})
@@ -1228,13 +1414,14 @@ def main() -> None:
     # 10. the cold solve with the pods/groups-sharded pack: the decisions
     # of the same solve through the plain versions on the CPU, and the pod
     # errors of the sequential pack (mesh.sharded_pack's contract)
-    kernels.reset_launches()
+    _reset_counts(kernels)
     _solve(ts_mod, pool, catalog, pods, (), DEVICE,
            pack_shards=PACK_SHARDS)  # warm-up
     _, sharded, elapsed = _solve(ts_mod, pool, catalog, pods, (), DEVICE,
                                  pack_shards=PACK_SHARDS)
     trace = TRACER.last()
     paths["solve_sharded_pack"] = dict(kernels.LAUNCHES)
+    tiles["solve_sharded_pack"] = _tiles(paths["solve_sharded_pack"])
     assert "pack.shards" in phase_millis(trace), "the pack was not sharded"
     _, sharded_cpu, cpu_s = _solve(ts_mod, pool, catalog, pods, (), "cpu",
                                    pack_shards=PACK_SHARDS)
@@ -1253,9 +1440,10 @@ def main() -> None:
     # 11. the Provisioner loop: the north-star batch through
     # Provisioner.reconcile, cold and then warm after a rollout, each pass's
     # decisions equal to the same pass through the plain versions on the CPU
-    kernels.reset_launches()
+    _reset_counts(kernels)
     gpu_passes = provisioner_passes(DEVICE)
     paths["provisioner_pass"] = dict(kernels.LAUNCHES)
+    tiles["provisioner_pass"] = _tiles(paths["provisioner_pass"])
     cpu_passes = provisioner_passes("cpu")
     for g, c in zip(gpu_passes, cpu_passes, strict=True):
         assert g["digest"] == c["digest"], \
@@ -1273,16 +1461,26 @@ def main() -> None:
     # underutilized nodes x the kwok 144-type catalog, the budget lifted;
     # the command equal to the plain versions' on the CPU
     env = underutilized_fleet(DEVICE)
-    kernels.reset_launches()
+    _reset_counts(kernels)
     cands, cmd, seconds, probes, trace, method = multi_consolidation(env)
     paths["consolidation_multi"] = dict(kernels.LAUNCHES)
+    tiles["consolidation_multi"] = _tiles(paths["consolidation_multi"])
     assert len(cands) == N_NODES, len(cands)
     assert cmd.candidates, "no consolidation decision found"
-    multi_shapes = encoding_shapes(env, sorted(
-        cands, key=lambda c: c.disruption_cost)[:100])
+    multi_cands = sorted(cands, key=lambda c: c.disruption_cost)[:100]
+    multi_shapes = encoding_shapes(env, multi_cands)
     before = dict(kernels.LAUNCHES)
     prof = _profile(lambda: multi_consolidation(env, repeats=0))
     profiled = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    # K2 and K3 at the disruption encode's shapes (G padded to 8, W = 8):
+    # held against their plain versions, timed alone, beside the device time
+    # of their launches in the profiled pass
+    for name, r in join_holds(disruption_encoding(env, multi_cands).problem,
+                              dev, flush).items():
+        r["device_ms"] = _device_ms(prof, name)
+        rows[name]["disruption"] = r
+    _emit({"phase": "kernels_at_disruption_shape", "kernels": {
+        name: rows[name]["disruption"] for name in FEASIBILITY[1:]}})
     cpu_env = underutilized_fleet("cpu")
     _, cpu_cmd, cpu_seconds, _, _, _ = multi_consolidation(cpu_env,
                                                            repeats=0)
@@ -1309,9 +1507,10 @@ def main() -> None:
     # the last unconsolidatable: the last one wins, classified with no
     # per-candidate fallback simulation, equal to the CPU's command
     env = stuck_fleet(DEVICE)
-    kernels.reset_launches()
+    _reset_counts(kernels)
     cands, cmd_d, seconds, stats, trace = single_consolidation(env)
     paths["consolidation_single"] = dict(kernels.LAUNCHES)
+    tiles["consolidation_single"] = _tiles(paths["consolidation_single"])
     single_shapes = encoding_shapes(env, cands)
     assert len(cands) == N_NODES, len(cands)
     assert cmd_d[:2] == ("delete", [f"single-node-{N_NODES - 1:05d}"]), cmd_d
@@ -1339,7 +1538,7 @@ def main() -> None:
     del env
     env = stuck_fleet(DEVICE, prefix="dscale")
     ctrl = new_controller(env)
-    kernels.reset_launches()
+    _reset_counts(kernels)
     passes = []
     for i in range(1 + WINDOW_REPEATS):
         before = dict(kernels.LAUNCHES)
@@ -1366,6 +1565,7 @@ def main() -> None:
                 stream.last
             assert stream.last["rows_rebuilt"] == 0, stream.last
     paths["disruption_controller"] = dict(kernels.LAUNCHES)
+    tiles["disruption_controller"] = _tiles(paths["disruption_controller"])
     decision = passes[0]["command"]
     assert decision[:2] == ("delete", [f"dscale-node-{N_NODES - 1:05d}"]), \
         decision
@@ -1401,6 +1601,14 @@ def main() -> None:
     total = {name: sum(p[name] for p in paths.values())
              for name in kernels.KERNELS}
     _emit({"phase": "main_path_launches", **total, "paths": paths})
+    # the register tile (ra x rb) and ring depth each K2 / K3 launch of the
+    # paths used, by path and shape, and their launches per tile in all
+    used: dict = {}
+    for path_tiles in tiles.values():
+        for name, *_, ra, rb, stages, n in path_tiles:
+            by_tile = used.setdefault(name, {})
+            by_tile[f"{ra}x{rb}"] = by_tile.get(f"{ra}x{rb}", 0) + n
+    _emit({"phase": "join_plans", "tiles_used": used, "paths": tiles})
     on_paths = {name for names in expect.values() for name in names}
     for name, n in total.items():
         assert n > 0 or name not in on_paths, \

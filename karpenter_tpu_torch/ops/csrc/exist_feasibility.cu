@@ -13,96 +13,140 @@
 //
 // Bound: operations. At 5,000 nodes (N = 8192 after the pow2 bucket) and
 // G = 120, K = 9, W = 64 the compatibility test is G * N * K * W = 566M word
-// ANDs over 18.9 MB of node masks.
+// ANDs (one LOP3 each) over 18.9 MB of node masks; the card's 32-bit logic
+// rate bounds it, not its memory.
 //
-// Design: as catalog_feasibility, a block of 128 threads covers 128
-// consecutive nodes for a tile of up to KT_TILE_MAX groups held in shared
-// memory; each node mask word is read once per tile. Stores are [G, N] with
-// the node index fastest, so they coalesce.
+// Design: the mask join of feasibility_common.cuh with nodes on the A side
+// and groups on the B side. The node-major [N, K, W] rows stay as they are
+// (row_splice and the mesh shards write them); a block copies one key's
+// rows of its node tile and group tile at a time into a double-buffered
+// shared-memory ring with coalesced cp.async chunks, and each thread ANDs an
+// RA x RB register tile of pairs from 16-byte shared loads, so the integer
+// pipe, not the loads, sets the pace. The tile sizes come from
+// ops/kernels.py join_plan: at the north-star shape 128 nodes x 32 groups
+// (256 blocks, two to an SM, each node mask word read by 4 blocks); at the
+// disruption shape (G = 8, W = 8) 32 nodes x 8 groups (256 blocks) with
+// every key copied at once. The block's avail, requests and tol_exist
+// arrive with its first copies; the division by each request is a multiply
+// by its reciprocal (kt_floordiv), done for all the thread's pairs one
+// resource at a time. Stores are [G, N] with the node index fastest.
 #include "feasibility_common.cuh"
 
-__global__ void exist_feasibility_kernel(
-    const uint32_t* __restrict__ g_mask, const unsigned char* __restrict__ g_def,
-    const unsigned char* __restrict__ g_ex, const int32_t* __restrict__ g_gt,
-    const int32_t* __restrict__ g_lt, const int32_t* __restrict__ group_req,
-    const uint32_t* __restrict__ e_mask, const unsigned char* __restrict__ e_def,
-    const unsigned char* __restrict__ e_ex, const int32_t* __restrict__ e_gt,
-    const int32_t* __restrict__ e_lt, const int32_t* __restrict__ exist_avail,
-    const unsigned char* __restrict__ tol_exist,
-    int G, int N, int K, int W, int R, int tile,
-    unsigned char* __restrict__ exist_ok, int32_t* __restrict__ exist_cap) {
-  extern __shared__ uint32_t s_grp[];  // [tile, K, W]
-  const int g0 = blockIdx.y * tile;
-  const int nt = min(tile, G - g0);
-  const size_t row_words = (size_t)K * W;
-  for (size_t i = threadIdx.x; i < (size_t)nt * row_words; i += blockDim.x)
-    s_grp[i] = g_mask[(size_t)g0 * row_words + i];
-  __syncthreads();
+template <int RA, int RB>
+__global__ void __launch_bounds__(KT_JOIN_THREADS) exist_feasibility_kernel(
+    KtSide exist, KtSide group, const int32_t* __restrict__ group_req,
+    const int32_t* __restrict__ exist_avail,
+    const unsigned char* __restrict__ tol_exist, int K, int W, int R,
+    int stages, bool vec, unsigned char* __restrict__ exist_ok,
+    int32_t* __restrict__ exist_cap) {
+  constexpr int TA = KT_JOIN_TX * RA, TB = KT_JOIN_TY * RB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const KtJoinLayout L = kt_join_layout(TA, TB, K, W, stages);
+  double* s_rcp = (double*)(smem + L.extra);              // [TB, R]: 1 / req
+  int32_t* s_avail = (int32_t*)(s_rcp + (size_t)TB * R);  // [TA, R]
+  int32_t* s_req = s_avail + (size_t)TA * R;              // [TB, R]
+  unsigned char* s_tol = (unsigned char*)(s_req + (size_t)TB * R);  // [TB, TA]
+  const int N = exist.rows, G = group.rows;
+  const int n0 = blockIdx.x * TA, g0 = blockIdx.y * TB;
+  const int nn = max(0, min(TA, N - n0)), ng = max(0, min(TB, G - g0));
 
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  const uint32_t bad = kt_join<RA, RB>(
+      exist, group, K, W, stages, vec, smem, KtCompatiblePred(),
+      [&] {
+        kt_copy_words(s_avail, exist_avail + (size_t)n0 * R, nn * R);
+        kt_copy_words(s_req, group_req + (size_t)g0 * R, ng * R);
+        kt_copy_bytes(s_tol, TA, tol_exist + (size_t)g0 * N + n0, N, ng, nn);
+      },
+      [&] {
+        for (int i = threadIdx.x; i < ng * R; i += KT_JOIN_THREADS)
+          s_rcp[i] = s_req[i] > 0 ? 1.0 / s_req[i] : 0.0;
+      });
 
-  bool bad[KT_TILE_MAX];
+  // exist_cap for the thread's pairs, resource by resource so that the
+  // pairs' divisions are independent of each other
+  const int ta = threadIdx.x % KT_JOIN_TX, tb = threadIdx.x / KT_JOIN_TX;
+  int32_t per[RA][RB];
 #pragma unroll
-  for (int j = 0; j < KT_TILE_MAX; ++j) bad[j] = false;
-  uint32_t acc[KT_TILE_MAX];
-  for (int k = 0; k < K; ++k) {
-    const size_t nk = (size_t)n * K + k;
-    kt_and_words(e_mask + nk * W, s_grp, nt, k, K, W, acc);
-    const bool edef = e_def[nk] != 0, eex = e_ex[nk] != 0;
-    const int32_t egt = e_gt[nk], elt = e_lt[nk];
+  for (int i = 0; i < RA; ++i)
 #pragma unroll
-    for (int j = 0; j < KT_TILE_MAX; ++j) {
-      if (j >= nt) break;
-      const size_t gk = (size_t)(g0 + j) * K + k;
-      const bool gdef = g_def[gk] != 0, gex = g_ex[gk] != 0;
-      const bool nonempty =
-          acc[j] != 0u && !kt_crossed(max(egt, g_gt[gk]), min(elt, g_lt[gk]));
-      bad[j] |= (edef && gdef && !nonempty && !(eex && gex)) ||
-                (gdef && !edef && !gex);
+    for (int j = 0; j < RB; ++j) per[i][j] = KT_INT_MAX;
+  for (int r = 0; r < R; ++r) {
+    int32_t avail[RA];
+#pragma unroll
+    for (int i = 0; i < RA; ++i)
+      avail[i] = s_avail[(ta + KT_JOIN_TX * i) * R + r];
+#pragma unroll
+    for (int j = 0; j < RB; ++j) {
+      const int gl = tb + KT_JOIN_TY * j;
+      const int32_t req = s_req[gl * R + r];
+      const double rcp = s_rcp[gl * R + r];
+      if (req > 0)
+#pragma unroll
+        for (int i = 0; i < RA; ++i)
+          per[i][j] = min(per[i][j], kt_floordiv(avail[i], req, rcp));
     }
   }
-
 #pragma unroll
-  for (int j = 0; j < KT_TILE_MAX; ++j) {
-    if (j >= nt) break;
-    const int g = g0 + j;
-    int32_t per = KT_INT_MAX;
-    for (int r = 0; r < R; ++r) {
-      const int32_t req = group_req[(size_t)g * R + r];
-      if (req > 0)
-        per = min(per, kt_floordiv(exist_avail[(size_t)n * R + r], req));
+  for (int j = 0; j < RB; ++j) {
+    const int gl = tb + KT_JOIN_TY * j;
+    if (gl >= ng) break;
+#pragma unroll
+    for (int i = 0; i < RA; ++i) {
+      const int nl = ta + KT_JOIN_TX * i;
+      if (nl >= nn) break;
+      const int32_t cap = max(per[i][j], 0);
+      const size_t out = (size_t)(g0 + gl) * N + n0 + nl;
+      exist_cap[out] = cap;
+      exist_ok[out] = !((bad >> (i * RB + j)) & 1u) &&
+                      s_tol[gl * TA + nl] != 0 && cap >= 1;
     }
-    const int32_t cap = max(per, 0);
-    const size_t out = (size_t)g * N + n;
-    exist_cap[out] = cap;
-    exist_ok[out] = !bad[j] && tol_exist[out] != 0 && cap >= 1;
   }
 }
 
+// Dynamic shared memory of one block of a tile_a x tile_b tile (ops/kernels.py
+// join_smem mirrors it).
+extern "C" size_t kt_exist_feasibility_smem(int ta, int tb, int K, int W,
+                                            int R, int stages) {
+  return kt_join_layout(ta, tb, K, W, stages).extra +
+         (size_t)tb * R * sizeof(double) +
+         (size_t)(ta + tb) * R * sizeof(int32_t) + (size_t)tb * ta;
+}
+
+// The tiles the launches of chip_smoke.py's paths pick (its join_plans).
+using ExistTiles =
+    KtTiles<KtTile<8, 4>, KtTile<4, 2>, KtTile<2, 2>, KtTile<2, 1>,
+            KtTile<1, 1>>;
+
+// ra, rb, stages: the tile plan of ops/kernels.py join_plan.
 extern "C" int kt_exist_feasibility(
     const void* g_mask, const void* g_def, const void* g_ex, const void* g_gt,
     const void* g_lt, const void* group_req,
     const void* e_mask, const void* e_def, const void* e_ex, const void* e_gt,
     const void* e_lt, const void* exist_avail, const void* tol_exist,
-    int G, int N, int K, int W, int R,
+    int G, int N, int K, int W, int R, int ra, int rb, int stages,
     void* exist_ok, void* exist_cap, void* stream) {
-  const int tile = kt_tile(K, W, G);
-  const size_t smem = (size_t)tile * K * W * sizeof(uint32_t);
-  cudaError_t err = kt_allow_smem(exist_feasibility_kernel, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch reports its own
-    return (int)err;
-  }
-  const int threads = 128;
-  dim3 grid((N + threads - 1) / threads, (G + tile - 1) / tile);
-  exist_feasibility_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)g_mask, (const unsigned char*)g_def,
-      (const unsigned char*)g_ex, (const int32_t*)g_gt, (const int32_t*)g_lt,
-      (const int32_t*)group_req,
-      (const uint32_t*)e_mask, (const unsigned char*)e_def,
-      (const unsigned char*)e_ex, (const int32_t*)e_gt, (const int32_t*)e_lt,
-      (const int32_t*)exist_avail, (const unsigned char*)tol_exist,
-      G, N, K, W, R, tile, (unsigned char*)exist_ok, (int32_t*)exist_cap);
-  return (int)cudaGetLastError();
+  const KtSide group{(const uint32_t*)g_mask, (const unsigned char*)g_def,
+                     (const unsigned char*)g_ex, (const int32_t*)g_gt,
+                     (const int32_t*)g_lt, G};
+  const KtSide exist{(const uint32_t*)e_mask, (const unsigned char*)e_def,
+                     (const unsigned char*)e_ex, (const int32_t*)e_gt,
+                     (const int32_t*)e_lt, N};
+  const bool vec = W % 4 == 0 && ((uintptr_t)g_mask % 16) == 0 &&
+                   ((uintptr_t)e_mask % 16) == 0;
+  const cudaError_t err = ExistTiles::dispatch(ra, rb, [&](auto tile) {
+    constexpr int RA = decltype(tile)::ra, RB = decltype(tile)::rb;
+    constexpr int TA = KT_JOIN_TX * RA, TB = KT_JOIN_TY * RB;
+    const size_t smem = kt_exist_feasibility_smem(TA, TB, K, W, R, stages);
+    cudaError_t e = kt_allow_smem(exist_feasibility_kernel<RA, RB>, smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((N + TA - 1) / TA, (G + TB - 1) / TB);
+    exist_feasibility_kernel<RA, RB>
+        <<<grid, KT_JOIN_THREADS, smem, (cudaStream_t)stream>>>(
+            exist, group, (const int32_t*)group_req,
+            (const int32_t*)exist_avail, (const unsigned char*)tol_exist, K, W,
+            R, stages, vec, (unsigned char*)exist_ok, (int32_t*)exist_cap);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) cudaGetLastError();  // clear it for the next launch
+  return (int)err;
 }

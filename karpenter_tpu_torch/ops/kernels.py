@@ -31,7 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,8 +55,8 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "combine_compat": [_VP] * 13 + [_I] * 4 + [_VP] * 8,
-    "catalog_feasibility": [_VP] * 20 + [_I] * 12 + [_VP] * 4,
-    "exist_feasibility": [_VP] * 13 + [_I] * 5 + [_VP] * 3,
+    "catalog_feasibility": [_VP] * 20 + [_I] * 15 + [_VP] * 4,
+    "exist_feasibility": [_VP] * 13 + [_I] * 8 + [_VP] * 3,
     "row_splice": [_VP] * 3 + [_I] + [_VP],
     "fits_matrix": [_VP] * 2 + [_I] * 3 + [_VP] * 2,
     "offering_compat": [_VP] * 4 + [_I] * 7 + [_VP] * 2,
@@ -146,6 +146,10 @@ def _lib() -> ctypes.CDLL:
                 fn = getattr(lib, f"kt_{name}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, n in (("exist", 6), ("catalog", 9)):
+                fn = getattr(lib, f"kt_{name}_feasibility_smem")
+                fn.argtypes = [_I] * n
+                fn.restype = ctypes.c_size_t
             lib.kt_error_string.argtypes = [ctypes.c_int]
             lib.kt_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -194,6 +198,12 @@ def _check_enc(name: str, e: Enc, rows: int, K: int, W: int, device):
     ]
 
 
+def _raise_for(name: str, rc: int) -> None:
+    if rc != 0:
+        msg = _lib().kt_error_string(rc).decode()
+        raise KernelError(f"{name} kernel launch failed: {msg} ({rc})")
+
+
 def _launch(name: str, device, *args) -> None:
     """Launch on the device's current stream; the C launcher returns
     cudaGetLastError(), so a refused launch (grid, shared memory) raises
@@ -202,10 +212,25 @@ def _launch(name: str, device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"kt_{name}")(*args, stream)
-    if rc != 0:
-        msg = lib.kt_error_string(rc).decode()
-        raise KernelError(f"{name} kernel launch failed: {msg} ({rc})")
+    _raise_for(name, rc)
     LAUNCHES[name] += 1
+
+
+def launcher(name: str, *inputs, **kw):
+    """(launch, outputs) for one of K1-K3 or row_splice (on staged rows,
+    row_splice_staged's arguments) on CUDA inputs: the wrapper's
+    checks and output allocation done once, and a callable that launches
+    the kernel on them again with nothing else around it (no checks, no
+    allocation, no count in LAUNCHES) — the kernel's own time, for a
+    measurement."""
+    dev, args, outs = _PREPARE[name](*inputs, **kw)
+    fn = getattr(_lib(), f"kt_{name}")
+
+    def launch():
+        # the stream current at the call, so a CUDA graph can capture it
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_for(name, fn(*args, stream))
+    return launch, outs
 
 
 # numpy storage dtype of the packed zone words -> the torch dtype of the
@@ -221,6 +246,111 @@ def zone_pack_layout(Z: int):
     decodes with it, so they can never drift apart."""
     dtype = np.uint8 if Z <= 8 else (np.uint16 if Z <= 16 else np.uint32)
     return dtype, -(-Z // np.iinfo(dtype).bits)
+
+
+# --------------------------------------------------------------------------
+# the tile plan of the mask join (K2, K3; csrc/feasibility_common.cuh)
+# --------------------------------------------------------------------------
+
+#: the register micro-tiles (A-rows x B-rows a thread owns) each join kernel
+#: is built for, as its source's KtTiles list holds them: the tiles the
+#: launches of chip_smoke.py's paths pick (its join_plans line)
+JOIN_MICRO_TILES = {
+    "exist_feasibility": ((8, 4), (4, 2), (2, 2), (2, 1), (1, 1)),
+    "catalog_feasibility": ((2, 4), (1, 1)),
+}
+#: a block's threads along the A side and the B side (KT_JOIN_TX, _TY)
+JOIN_THREADS_A, JOIN_THREADS_B = 16, 8
+#: streaming multiprocessors of an H100 SXM, and the dynamic shared memory
+#: one block may opt in to
+SM_COUNT = 132
+SMEM_PER_BLOCK = 232_448
+#: the ring holds every key at once (one wait instead of one per key) when
+#: the whole join fits in this much shared memory: at the launch shapes of
+#: chip_smoke.py that do, 1-6% faster than the two-stage ring (PERF.md §6)
+RESIDENT_SMEM = 64 * 1024
+
+
+class JoinPlan(NamedTuple):
+    ra: int          # A-rows per thread
+    rb: int          # B-rows per thread
+    stages: int      # ring stages: K (every key resident) or 2
+    tile_a: int      # A-rows per block
+    tile_b: int      # B-rows per block
+    grid_a: int      # blocks along A (at least 1)
+    grid_b: int      # blocks along B
+    smem: int        # dynamic shared memory per block, bytes
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def join_smem(kind: str, tile_a: int, tile_b: int, K: int, W: int,
+              stages: int, *, R: int, O: int = 0, Wz: int = 0,
+              Z: int = 0) -> int:
+    """Dynamic shared memory of one block, as the kernels lay it out
+    (kt_join_layout, then the kernel's own staging)."""
+    row_chunks = (-(-W // 4)) | 1
+    groups = -(-K // 32)
+    join = (_align16(stages * (tile_a + tile_b) * row_chunks * 16)
+            + _align16(K * tile_a * 8) + _align16(K * tile_b * 8)
+            + 2 * _align16(K * tile_a) + 2 * _align16(K * tile_b)
+            + _align16(groups * tile_a * 8) + _align16(groups * tile_b * 8)
+            + _align16(groups * 4))
+    if kind == "exist_feasibility":
+        return (join + tile_b * R * 8 + (tile_a + tile_b) * R * 4
+                + tile_b * tile_a)
+    if kind == "catalog_feasibility":
+        return (join + tile_b * R * 8
+                + 4 * (tile_a * (R + 2 * O + O * Wz)
+                       + tile_b * (2 * R + 2 * W + Wz) + Z)
+                + tile_a * O + tile_b * tile_a + tile_b)
+    raise ValueError(f"no join kernel named {kind!r}")
+
+
+def _join_cost(ra: int, rb: int) -> float:
+    """SM clocks per pair and 4 mask words: the larger of the LOP3 rate
+    (4 * ra * rb ANDs per thread at 2 warp instructions a clock) and the
+    16-byte shared loads (ra + rb per thread, 4 clocks a warp each)."""
+    return max(2 * ra * rb, 4 * (ra + rb)) / (ra * rb)
+
+
+def join_plan(kind: str, rows_a: int, rows_b: int, K: int, W: int, *,
+              R: int, O: int = 0, Wz: int = 0, Z: int = 0) -> JoinPlan:
+    """The micro-tile, ring depth and grid of one K2 / K3 launch over
+    rows_a x rows_b pairs (A: types or nodes, B: combined rows or groups).
+    Among the kernel's micro-tiles whose block fits in shared memory, and
+    that give every SM a block where any does, the one with the least
+    estimated time: the blocks one SM runs in turn times a block's pairs
+    times _join_cost. At every launch shape of chip_smoke.py's paths that
+    is the fastest tile built (join_ablation.py plans, PERF.md §6). No fit
+    at all leaves the smallest tile, whose launch the card then refuses."""
+    def plan(ra, rb):
+        ta, tb = JOIN_THREADS_A * ra, JOIN_THREADS_B * rb
+        stages = K
+        if (K > 2 and join_smem(kind, ta, tb, K, W, K, R=R, O=O, Wz=Wz, Z=Z)
+                > RESIDENT_SMEM):
+            stages = 2
+        return JoinPlan(ra, rb, stages, ta, tb, max(1, -(-rows_a // ta)),
+                        -(-rows_b // tb),
+                        join_smem(kind, ta, tb, K, W, stages, R=R, O=O,
+                                  Wz=Wz, Z=Z))
+
+    if kind not in JOIN_MICRO_TILES:
+        raise ValueError(f"no join kernel named {kind!r}")
+    plans = [plan(ra, rb) for ra, rb in JOIN_MICRO_TILES[kind]]
+    fits = [p for p in plans if p.smem <= SMEM_PER_BLOCK]
+    if not fits:
+        return plans[-1]
+    full = [p for p in fits if p.grid_a * p.grid_b >= SM_COUNT]
+
+    def cost(p):
+        blocks = p.grid_a * p.grid_b
+        return (-(-blocks // SM_COUNT) * p.tile_a * p.tile_b
+                * _join_cost(p.ra, p.rb),
+                blocks * p.tile_a * p.tile_b, -p.tile_a * p.tile_b)
+    return min(full or fits, key=cost)
 
 
 # --------------------------------------------------------------------------
@@ -244,6 +374,17 @@ def combine_compat(template: Enc, group: Enc, allow_undefined: torch.Tensor
                    ) -> Tuple[Enc, torch.Tensor]:
     if not _on_cuda(template.mask):
         return combine_compat_plain(template, group, allow_undefined)
+    dev, args, (cmb, compat_tm) = _combine_compat_args(template, group,
+                                                       allow_undefined)
+    if args is not None:
+        _launch("combine_compat", dev, *args)
+    return cmb, compat_tm
+
+
+def _combine_compat_args(template: Enc, group: Enc,
+                         allow_undefined: torch.Tensor):
+    """(device, launch arguments or None when there is nothing to launch,
+    outputs) of K1 on CUDA inputs."""
     dev = template.mask.device
     M, K, W = template.mask.shape
     G = group.mask.shape[0]
@@ -259,10 +400,9 @@ def combine_compat(template: Enc, group: Enc, allow_undefined: torch.Tensor
               gt=torch.empty((MG, K), dtype=torch.int32, device=dev),
               lt=torch.empty((MG, K), dtype=torch.int32, device=dev))
     compat_tm = torch.empty((M, G), dtype=torch.bool, device=dev)
-    if MG:
-        _launch("combine_compat", dev, *ptrs, M, G, K, W,
-                *(x.data_ptr() for x in cmb), compat_tm.data_ptr())
-    return cmb, compat_tm
+    args = ((*ptrs, M, G, K, W, *(x.data_ptr() for x in cmb),
+             compat_tm.data_ptr()) if MG else None)
+    return dev, args, (cmb, compat_tm)
 
 
 # --------------------------------------------------------------------------
@@ -327,6 +467,20 @@ def catalog_feasibility(cmb: Enc, compat_tm: torch.Tensor, it: Enc,
             cmb, compat_tm, it, group_req, daemon, alloc, template_its,
             off_zone, off_captype, off_available, zone_values, tol_template,
             zone_key=zone_key, captype_key=captype_key)
+    dev, args, outs = _catalog_feasibility_args(
+        cmb, compat_tm, it, group_req, daemon, alloc, template_its, off_zone,
+        off_captype, off_available, zone_values, tol_template,
+        zone_key=zone_key, captype_key=captype_key)
+    if args is not None:
+        _launch("catalog_feasibility", dev, *args)
+    return outs
+
+
+def _catalog_feasibility_args(cmb: Enc, compat_tm, it: Enc, group_req, daemon,
+                              alloc, template_its, off_zone, off_captype,
+                              off_available, zone_values, tol_template, *,
+                              zone_key: int, captype_key: int):
+    """(device, launch arguments or None, outputs) of K2 on CUDA inputs."""
     dev = cmb.mask.device
     M, G = compat_tm.shape
     MG, K, W = cmb.mask.shape
@@ -353,11 +507,14 @@ def catalog_feasibility(cmb: Enc, compat_tm: torch.Tensor, it: Enc,
                       device=dev)
     ppn = torch.empty((G, M, T), dtype=torch.int16, device=dev)
     zone_adm = torch.empty((G, M, Z), dtype=torch.bool, device=dev)
+    args = None
     if MG:
-        _launch("catalog_feasibility", dev, *ptrs, G, M, T, K, W, R, O, Z,
-                zone_key, captype_key, np.iinfo(np_dtype).bits, Wz,
+        plan = join_plan("catalog_feasibility", T, MG, K, W, R=R, O=O, Wz=Wz,
+                         Z=Z)
+        args = (*ptrs, G, M, T, K, W, R, O, Z, zone_key, captype_key,
+                np.iinfo(np_dtype).bits, Wz, plan.ra, plan.rb, plan.stages,
                 okz.data_ptr(), ppn.data_ptr(), zone_adm.data_ptr())
-    return okz, ppn, zone_adm
+    return dev, args, (okz, ppn, zone_adm)
 
 
 # --------------------------------------------------------------------------
@@ -387,6 +544,16 @@ def exist_feasibility(group: Enc, group_req, exist: Enc, exist_avail,
     if not _on_cuda(group.mask):
         return exist_feasibility_plain(group, group_req, exist, exist_avail,
                                        tol_exist)
+    dev, args, outs = _exist_feasibility_args(group, group_req, exist,
+                                              exist_avail, tol_exist)
+    if args is not None:
+        _launch("exist_feasibility", dev, *args)
+    return outs
+
+
+def _exist_feasibility_args(group: Enc, group_req, exist: Enc, exist_avail,
+                            tol_exist):
+    """(device, launch arguments or None, outputs) of K3 on CUDA inputs."""
     dev = group.mask.device
     G, K, W = group.mask.shape
     N = exist.mask.shape[0]
@@ -400,10 +567,12 @@ def exist_feasibility(group: Enc, group_req, exist: Enc, exist_avail,
             _check("tol_exist", tol_exist, torch.bool, (G, N), dev)]
     exist_ok = torch.empty((G, N), dtype=torch.bool, device=dev)
     exist_cap = torch.empty((G, N), dtype=torch.int32, device=dev)
+    args = None
     if G and N:
-        _launch("exist_feasibility", dev, *ptrs, G, N, K, W, R,
+        plan = join_plan("exist_feasibility", N, G, K, W, R=R)
+        args = (*ptrs, G, N, K, W, R, plan.ra, plan.rb, plan.stages,
                 exist_ok.data_ptr(), exist_cap.data_ptr())
-    return exist_ok, exist_cap
+    return dev, args, (exist_ok, exist_cap)
 
 
 # --------------------------------------------------------------------------
@@ -502,6 +671,12 @@ def stage_rows(host, device: torch.device):
 def row_splice_staged(bufs, staged, start: int) -> None:
     """One launch of the kernel: the staged leaves (stage_rows) into rows
     from ``start`` of every buffer, in place."""
+    dev, args, _ = _row_splice_args(bufs, staged, start)
+    _launch("row_splice", dev, *args)
+
+
+def _row_splice_args(bufs, staged, start: int):
+    """(device, launch arguments, no outputs) of one row_splice launch."""
     dstage, offsets, nbytes = staged
     n = len(bufs)
     dst = (ctypes.c_ulonglong * n)(*(
@@ -510,7 +685,13 @@ def row_splice_staged(bufs, staged, start: int) -> None:
     src = (ctypes.c_ulonglong * n)(*(dstage.data_ptr() + off
                                      for off in offsets))
     count = (ctypes.c_ulonglong * n)(*nbytes)
-    _launch("row_splice", dstage.device, dst, src, count, n)
+    return dstage.device, (dst, src, count, n), None
+
+
+_PREPARE = {"combine_compat": _combine_compat_args,
+            "catalog_feasibility": _catalog_feasibility_args,
+            "exist_feasibility": _exist_feasibility_args,
+            "row_splice": _row_splice_args}
 
 
 # --------------------------------------------------------------------------

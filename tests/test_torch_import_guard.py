@@ -28,6 +28,7 @@ mods = [m.name for m in pkgutil.walk_packages(karpenter_tpu_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 import chip_smoke
+import join_ablation
 
 # a small solve through the plain versions reaches the imports made inside
 # functions too
@@ -75,7 +76,7 @@ _IMPORT = re.compile(
 
 def test_sources_name_no_jax_or_reference_import():
     files = sorted((REPO / "karpenter_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "join_ablation.py"]
     assert len(files) > 30
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT.finditer(f.read_text())]

@@ -3,6 +3,7 @@ sources and raises with nvcc's own output when nvcc is missing or fails,
 and CPU tensors take the plain versions without counting launches."""
 
 import dataclasses
+import re
 import shutil
 import stat
 
@@ -224,3 +225,139 @@ def test_offering_compat_wrapper_matches_jax_on_the_cpu(W):
     want = jfeas.offering_compat(mask, 2, 5, off_zone, off_ct, off_avail)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     assert got.any() and not got.all()
+
+
+# -- the tile plan of K2 / K3 (kernels.join_plan) -----------------------------
+
+#: the four launch shapes the plan must fill the card at: K3 and K2 at the
+#: north star (5,000 nodes / 2,000 types, 120 groups, W = 64) and at the
+#: disruption encodes (8 padded groups, W = 8)
+JOIN_SHAPES = [("exist_feasibility", 8192, 120, 9, 64, 4, 0, 0, 0),
+               ("exist_feasibility", 8192, 8, 9, 8, 4, 0, 0, 0),
+               ("catalog_feasibility", 2000, 120, 9, 64, 4, 8, 1, 4),
+               ("catalog_feasibility", 144, 8, 9, 8, 4, 8, 1, 4)]
+
+
+def _random_join_shape(seed):
+    rng = np.random.default_rng(seed)
+    kind = ("exist_feasibility", "catalog_feasibility")[seed % 2]
+    return (kind, int(rng.integers(0, 20000)) if kind[0] == "c"
+            else int(rng.integers(1, 20000)), int(rng.integers(1, 300)),
+            int(rng.integers(0, 13)), int(rng.integers(1, 80)),
+            int(rng.integers(0, 7)), int(rng.integers(1, 11)),
+            int(rng.integers(1, 3)), int(rng.integers(1, 65)))
+
+
+def _pair_counts(plan, A, B):
+    """How many threads of the launch own each pair (a, b), by the kernels'
+    thread mapping: block (x, y), thread (ta, tb) = (tid % 16, tid / 16)
+    owns A-rows x * tile_a + ta + 16 i (i < ra) and B-rows y * tile_b + tb
+    + 8 j (j < rb); pairs outside [0, A) x [0, B) are skipped."""
+    def rows(grid, tile, threads, r, limit):
+        idx = (np.arange(grid)[:, None, None] * tile
+               + np.arange(threads)[None, :, None]
+               + threads * np.arange(r)[None, None, :]).ravel()
+        return idx[idx < limit]
+    a = rows(plan.grid_a, plan.tile_a, kernels.JOIN_THREADS_A, plan.ra, A)
+    b = rows(plan.grid_b, plan.tile_b, kernels.JOIN_THREADS_B, plan.rb, B)
+    return np.bincount((a[:, None] * B + b[None, :]).ravel(),
+                       minlength=A * B)
+
+
+@pytest.mark.parametrize("shape", JOIN_SHAPES + [
+    _random_join_shape(seed) for seed in range(24)])
+def test_join_plan_covers_every_pair_once_and_fills_the_card(shape):
+    kind, A, B, K, W, R, O, Wz, Z = shape
+    plan = kernels.join_plan(kind, A, B, K, W, R=R, O=O, Wz=Wz, Z=Z)
+    assert (plan.ra, plan.rb) in kernels.JOIN_MICRO_TILES[kind]
+    assert plan.tile_a == kernels.JOIN_THREADS_A * plan.ra
+    assert plan.tile_b == kernels.JOIN_THREADS_B * plan.rb
+    assert plan.stages in (K, 2)
+    assert plan.smem == kernels.join_smem(kind, plan.tile_a, plan.tile_b, K,
+                                          W, plan.stages, R=R, O=O, Wz=Wz,
+                                          Z=Z)
+    assert plan.smem <= kernels.SMEM_PER_BLOCK
+    if A:
+        assert (_pair_counts(plan, A, B) == 1).all()
+    else:
+        assert plan.grid_a == 1     # zone_adm is written by the first column
+    smallest = kernels.JOIN_THREADS_A * kernels.JOIN_THREADS_B
+    if A * B >= kernels.SM_COUNT * smallest:
+        assert plan.grid_a * plan.grid_b >= kernels.SM_COUNT
+
+
+def test_join_plan_at_the_main_path_shapes():
+    """Every SM gets a block at three of the four shapes; the fourth (MG = 8
+    x T = 144) has fewer pairs than 132 blocks of the smallest tile."""
+    plans = [kernels.join_plan(kind, A, B, K, W, R=R, O=O, Wz=Wz, Z=Z)
+             for kind, A, B, K, W, R, O, Wz, Z in JOIN_SHAPES]
+    assert [p.grid_a * p.grid_b >= kernels.SM_COUNT for p in plans] == [
+        True, True, True, False]
+    # the north-star K3 block holds 128 nodes x 32 groups in a two-stage
+    # ring above the 48 KB default; the disruption blocks keep every key
+    assert (plans[0].tile_a, plans[0].tile_b, plans[0].stages) == (128, 32, 2)
+    assert plans[0].smem > 48 * 1024
+    assert plans[1].stages == plans[3].stages == 9
+
+
+def test_join_plan_leaves_the_smallest_tile_when_nothing_fits():
+    """A row too wide for any block: the launch is refused on the card and
+    the wrapper raises KernelError (tests/test_torch_kernels_cuda.py)."""
+    plan = kernels.join_plan("exist_feasibility", 1, 1, 1, 60000, R=1)
+    assert (plan.ra, plan.rb) == (1, 1)
+    assert plan.smem > kernels.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("name", ["exist_feasibility",
+                                  "catalog_feasibility"])
+def test_join_tiles_match_the_kernel_sources(name):
+    """join_plan picks among the register tiles the kernel is built for:
+    the KtTiles list of its source."""
+    src = (kernels.CSRC / f"{name}.cu").read_text()
+    built = re.search(r"using \w+Tiles =\s*KtTiles<(.*?)>;", src, re.S)
+    tiles = tuple((int(a), int(b)) for a, b in
+                  re.findall(r"KtTile<(\d+), (\d+)>", built.group(1)))
+    assert tiles == kernels.JOIN_MICRO_TILES[name]
+
+
+def test_join_ablation_edits_apply_to_the_sources():
+    """Every source edit of join_ablation.py's variants still finds its
+    text, once, in the kernel sources."""
+    import join_ablation
+    for variant, edits in join_ablation.VARIANTS.items():
+        for name, text, _ in edits:
+            count = (kernels.CSRC / name).read_text().count(text)
+            assert count == 1, (variant, name, text, count)
+
+
+@pytest.mark.parametrize("name", ["combine_compat", "catalog_feasibility",
+                                  "exist_feasibility", "row_splice"])
+def test_launch_arguments_match_the_c_signatures(name):
+    """The prepared arguments of K1-K3 and row_splice (launcher, wrappers)
+    are one fewer than the C entry point's parameters: the stream comes
+    last."""
+    _, problem = build_problem(PORT, mini_workload(PORT))
+    args, statics = binpack.device_args(
+        dataclasses.replace(problem, device_cache=None),
+        binpack.ArgPlacer(torch.device("cpu")))
+    (group, template, it, group_req, daemon, alloc, template_its, off_zone,
+     off_captype, off_avail, zone_values, allow_undef, tol_template, exist,
+     exist_avail, tol_exist) = args
+    cmb, compat_tm = kernels.combine_compat_plain(template, group,
+                                                  allow_undef)
+    inputs = {
+        "combine_compat": ((template, group, allow_undef), {}),
+        "catalog_feasibility": (
+            (cmb, compat_tm, it, group_req, daemon, alloc, template_its,
+             off_zone, off_captype, off_avail, zone_values, tol_template),
+            dict(zone_key=statics["zone_key"],
+                 captype_key=statics["captype_key"])),
+        "exist_feasibility": ((group, group_req, exist, exist_avail,
+                               tol_exist), {}),
+        "row_splice": (([exist_avail.clone()],
+                        (torch.zeros(16, dtype=torch.uint8), [0], [16]), 0),
+                       {}),
+    }
+    a, kw = inputs[name]
+    _, launch_args, _ = kernels._PREPARE[name](*a, **kw)
+    assert len(launch_args) + 1 == len(kernels._ARGTYPES[name])

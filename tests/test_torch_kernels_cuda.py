@@ -166,6 +166,147 @@ def test_offering_compat_matches_plain(W):
     assert out.any() and not out.all()
 
 
+def catalog_case(rng, M, G, T, W, Z, K=9, R=4):
+    """K2's inputs: rows with dense zone / capacity-type masks (keys 0 and 1)
+    so offerings pass often, a daemon no type holds (of the last of several
+    templates), zero requests, zone
+    indices from -1 and capacity types from -1 to past 32 * W."""
+    O = 8
+    template, group = rand_enc(rng, M, K, W), rand_enc(rng, G, K, W)
+    for e in (template, group):
+        e.mask[:, :2, :] |= i32(rng.integers(0, 2**31, (e.mask.shape[0], 2,
+                                                         W)))
+    cmb, compat_tm = kernels.combine_compat_plain(
+        template, group, flags(rng, (K,), 0.5))
+    it = rand_enc(rng, T, K, W)
+    it.defined[:, 2:] &= flags(rng, (T, K - 2), 0.3)   # some pairs intersect
+    daemon = rng.integers(0, 300, (M, R))
+    if M > 1:
+        daemon[-1, 2] = 10**6
+    req = rng.integers(0, 500, (G, R))
+    req[0] = 0
+    return (cmb, flags(rng, (M, G), 0.9), it, i32(req), i32(daemon),
+            i32(rng.integers(0, 4000, (T, R))), flags(rng, (M, T), 0.9),
+            i32(rng.integers(-1, Z, (T, O))),
+            i32(rng.integers(-1, 32 * W + 3, (T, O))),
+            flags(rng, (T, O), 0.8), i32(np.arange(Z)),
+            flags(rng, (G, M), 0.9))
+
+
+# (M, G, T, W, Z): row counts on and off the tiles' edges (the B tile holds
+# 8, 16 or 32 rows, the A tile 16 to 128 types), W of 1, 8 and 64 words,
+# 8-, 16- and 32-bit zone words, the disruption shape (MG = 8, T = 144,
+# W = 8) and the north-star shape (MG = 120, T = 2,000, W = 64)
+CATALOG_EDGES = [(1, 1, 1, 64, 4), (1, 7, 333, 8, 4), (1, 8, 144, 8, 4),
+                 (1, 9, 517, 1, 12), (3, 3, 129, 8, 33),
+                 (1, 120, 2000, 64, 4), (2, 60, 1001, 64, 40)]
+
+
+@pytest.mark.parametrize("M,G,T,W,Z", CATALOG_EDGES)
+def test_catalog_feasibility_matches_plain_at_tile_edges(M, G, T, W, Z):
+    rng = np.random.default_rng(M * 1000 + G + T)
+    args = catalog_case(rng, M, G, T, W, Z)
+    kw = dict(zone_key=0, captype_key=1)
+    before = kernels.LAUNCHES["catalog_feasibility"]
+    out = kernels.catalog_feasibility(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["catalog_feasibility"] == before + 1
+    assert_same(out, kernels.catalog_feasibility_plain(*args, **kw))
+    if M * G * T > 64:
+        assert (out[0] != 0).any() and (out[0] == 0).any()
+
+
+def test_catalog_feasibility_writes_zone_adm_for_an_empty_catalog():
+    rng = np.random.default_rng(5)
+    args = catalog_case(rng, 2, 9, 0, 8, 4)
+    kw = dict(zone_key=0, captype_key=1)
+    out = kernels.catalog_feasibility(*args, **kw)
+    torch.cuda.synchronize()
+    assert_same(out, kernels.catalog_feasibility_plain(*args, **kw))
+
+
+def exist_case(rng, G, N, W, K=9, R=4):
+    """K3's inputs: a third of the nodes define every key with every value
+    (and every group mask holds value 0), negative avail (floor != trunc),
+    and padded rows at the end."""
+    group, exist = rand_enc(rng, G, K, W), rand_enc(rng, N, K, W)
+    group.mask[:, :, 0] |= 1          # the full nodes can meet every group
+    req = rng.integers(0, 6, (G, R))
+    avail = rng.integers(-20, 40, (N, R))
+    full = rng.random(N) < 0.35
+    exist.defined[full] = True
+    exist.exempt[full] = False
+    exist.mask[full] = -1
+    exist.gt[full] = INT_MIN
+    exist.lt[full] = INT_MAX
+    pad = N // 10
+    if pad:
+        avail[-pad:] = 0
+        exist.defined[-pad:] = False
+        exist.mask[-pad:] = -1
+    return group, i32(req), exist, i32(avail), flags(rng, (G, N), 0.9)
+
+
+# (G, N, W): group counts on and off the B tile's edges, node counts that
+# are not multiples of any A tile, W of 1, 8 and 64 words, the disruption
+# shape (G = 8, N = 8,192, W = 8) and the north-star shape (G = 120,
+# N = 8,192, W = 64), whose block needs the shared-memory opt-in
+EXIST_EDGES = [(1, 1000, 64), (7, 333, 8), (8, 8192, 8), (9, 517, 1),
+               (33, 129, 3), (120, 8192, 64), (120, 1037, 64)]
+
+
+@pytest.mark.parametrize("G,N,W", EXIST_EDGES)
+def test_exist_feasibility_matches_plain_at_tile_edges(G, N, W):
+    rng = np.random.default_rng(G * 10000 + N)
+    args = exist_case(rng, G, N, W)
+    before = kernels.LAUNCHES["exist_feasibility"]
+    out = kernels.exist_feasibility(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["exist_feasibility"] == before + 1
+    assert_same(out, kernels.exist_feasibility_plain(*args))
+    assert out[0].any() and not out[0].all()
+
+
+@pytest.mark.parametrize("ra,rb", [(8, 4), (2, 1), (1, 1)])
+@pytest.mark.parametrize("K,W,R,O,Wz,Z,stages", [(9, 64, 4, 8, 1, 4, 2),
+                                                 (9, 8, 4, 8, 1, 4, 9),
+                                                 (40, 3, 7, 5, 2, 33, 2)])
+def test_join_smem_matches_the_kernels_layout(ra, rb, K, W, R, O, Wz, Z,
+                                              stages):
+    """kernels.join_smem (the plan's fit test) equals the bytes the C
+    launchers ask for."""
+    lib = kernels._lib()
+    ta, tb = 16 * ra, 8 * rb
+    assert lib.kt_exist_feasibility_smem(ta, tb, K, W, R, stages) == \
+        kernels.join_smem("exist_feasibility", ta, tb, K, W, stages, R=R)
+    assert lib.kt_catalog_feasibility_smem(ta, tb, K, W, R, O, Wz, Z,
+                                           stages) == \
+        kernels.join_smem("catalog_feasibility", ta, tb, K, W, stages, R=R,
+                          O=O, Wz=Wz, Z=Z)
+
+
+def test_north_star_exist_plan_needs_the_shared_memory_opt_in():
+    plan = kernels.join_plan("exist_feasibility", 8192, 120, 9, 64, R=4)
+    assert plan.smem > 48 * 1024
+
+
+def test_exist_feasibility_matches_plain_on_unaligned_rows():
+    """A mask that starts 4 bytes past a 16-byte boundary takes the word
+    copies instead of the 16-byte ones."""
+    rng = np.random.default_rng(11)
+    group, req, exist, avail, tol = exist_case(rng, 9, 301, 8)
+    flat = torch.empty(exist.mask.numel() + 1, dtype=torch.int32,
+                       device="cuda")
+    shifted = flat[1:].view(exist.mask.shape)
+    shifted.copy_(exist.mask)
+    exist = exist._replace(mask=shifted)
+    assert exist.mask.data_ptr() % 16 == 4
+    out = kernels.exist_feasibility(group, req, exist, avail, tol)
+    torch.cuda.synchronize()
+    assert_same(out, kernels.exist_feasibility_plain(group, req, exist, avail,
+                                                     tol))
+
+
 def test_exist_feasibility_matches_plain():
     rng = np.random.default_rng(1)
     K, W, G, N, R = 9, 64, 13, 300, 3
