@@ -39,13 +39,14 @@ two kernels with no caller on any path (fits_matrix, offering_compat) are
 held against their plain versions at the solve's shapes and count no
 launches.
 
-K1-K3 and row_splice are also timed alone (``kernel_ms``: back-to-back
-launches on prepared inputs, replayed from a CUDA graph; ``cold_ms``: one
-launch after a 128 MB buffer is written, so the inputs come from HBM)
-beside their bound, and K2 and K3 once more at the disruption encode's
-shapes (G padded to 8, W = 8), held against their plain versions there
-too. The register tile each K2 / K3 launch of the paths used is printed
-by path and shape (``join_plans``).
+Every kernel is also timed alone (``kernel_ms``: back-to-back launches on
+prepared inputs, replayed from a CUDA graph; ``cold_ms``: one launch after a
+128 MB buffer is written, so the inputs come from HBM) beside its bound; K1
+once more on the inputs of a 4x2 mesh slot (32 groups), and K1-K3 at the
+disruption encode's shapes (G padded to 8, W = 8), held against their plain
+versions there too. The register tile of each K2 / K3 launch of the paths,
+and the geometry of each K1 launch, are printed by path and shape
+(``join_plans``).
 
 Each phase prints JSON lines. The line before last is the kernel table; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -55,6 +56,7 @@ non-zero; without CUDA it exits non-zero before printing a result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -347,16 +349,26 @@ def _kernel_ms(launch, launches: int = KERNEL_RUNS, replays: int = 10
     return start.elapsed_time(end) / (launches * replays)
 
 
+#: SM clocks of the spin after the flush write in _cold_ms (about half a
+#: millisecond at 1.98 GHz): longer than the host takes to enqueue an event
+#: and a launch, which the write alone (about 40 us) need not be. The spin
+#: is torch.cuda._sleep, a private PyTorch call (one kernel that counts
+#: clocks); should a PyTorch release drop it, _cold_ms fails loudly
+COLD_SPIN_CYCLES = 1_000_000
+
+
 def _cold_ms(launch, flush, runs: int = KERNEL_RUNS) -> float:
     """Median time of one launch after ``flush`` (a device buffer larger
     than the 50 MB L2) has been written, so the inputs come from HBM. The
-    write keeps the card busy while the host enqueues the launch, so the
-    events time the kernel and not the host."""
+    write and a spin kernel after it keep the card busy while the host
+    enqueues the start event and the launch, so the events time the kernel
+    and not the host."""
     import torch
     launch()
     times = []
     for i in range(runs):
         flush.fill_(i)
+        torch.cuda._sleep(COLD_SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -646,33 +658,69 @@ FEASIBILITY = ("combine_compat", "catalog_feasibility", "exist_feasibility")
 #: the tile plan of every K2 / K3 launch since the last _reset_counts():
 #: (kernel, rows_a, rows_b, K, W, ra, rb, stages) -> launches
 TILES: collections.Counter = collections.Counter()
+#: the geometry of every K1 launch since the last _reset_counts():
+#: (M, G, K, W, vec, lanes, threads) -> launches
+K1_PLANS: collections.Counter = collections.Counter()
 
 
 def _record_tiles(kernels) -> None:
     """Count in TILES the plan (kernels.join_plan) of every K2 / K3 launch
-    from here on: the wrappers look join_plan up at each launch."""
-    plan = kernels.join_plan
+    from here on, and in K1_PLANS the geometry (kernels.combine_plan) of
+    every K1 launch: the wrappers look both up at each launch."""
+    plan, combine_plan = kernels.join_plan, kernels.combine_plan
 
     def recording(kind, rows_a, rows_b, K, W, **kw):
         p = plan(kind, rows_a, rows_b, K, W, **kw)
         TILES[(kind, rows_a, rows_b, K, W, p.ra, p.rb, p.stages)] += 1
         return p
+
+    def recording_k1(M, G, K, W, **kw):
+        p = combine_plan(M, G, K, W, **kw)
+        K1_PLANS[(M, G, K, W, p.vec, p.lanes, p.threads)] += 1
+        return p
     kernels.join_plan = recording
+    kernels.combine_plan = recording_k1
+
+
+@contextlib.contextmanager
+def _keeping_k1_inputs(kernels):
+    """Inside the block, a copy of the inputs of K1's first call at each
+    (M, G, K, W) goes into the dict it yields (the paths call the wrapper
+    through the kernels module); the wrapper is restored after it."""
+    combine, kept = kernels.combine_compat, {}
+
+    def keeping(template, group, allow_undefined):
+        shape = (template.mask.shape[0], *group.mask.shape)
+        if shape not in kept:
+            kept[shape] = (type(template)(*(x.clone() for x in template)),
+                           type(group)(*(x.clone() for x in group)),
+                           allow_undefined.clone())
+        return combine(template, group, allow_undefined)
+    kernels.combine_compat = keeping
+    try:
+        yield kept
+    finally:
+        kernels.combine_compat = combine
 
 
 def _reset_counts(kernels) -> None:
     kernels.reset_launches()
     TILES.clear()
+    K1_PLANS.clear()
 
 
-def _tiles(launches: dict) -> list:
-    """TILES as [kernel, rows_a, rows_b, K, W, ra, rb, stages, launches]
-    rows, checked against the path's launch counts."""
-    for name in FEASIBILITY[1:]:
-        n = sum(v for k, v in TILES.items() if k[0] == name)
+def _tiles(launches: dict) -> tuple:
+    """(TILES as [kernel, rows_a, rows_b, K, W, ra, rb, stages, launches]
+    rows, K1_PLANS as [M, G, K, W, vec, lanes, threads, launches]
+    rows), checked against the path's launch counts."""
+    counts = {name: sum(v for k, v in TILES.items() if k[0] == name)
+              for name in FEASIBILITY[1:]}
+    counts["combine_compat"] = sum(K1_PLANS.values())
+    for name, n in counts.items():
         assert n == launches[name], f"{name}: {n} plans, {launches[name]} " \
                                     f"launches"
-    return [[*k, v] for k, v in sorted(TILES.items())]
+    return ([[*k, v] for k, v in sorted(TILES.items())],
+            [[*k, v] for k, v in sorted(K1_PLANS.items())])
 
 
 def _alone(name: str, inputs, kw: dict, bound_ms: float, flush) -> dict:
@@ -686,58 +734,73 @@ def _alone(name: str, inputs, kw: dict, bound_ms: float, flush) -> dict:
             "cold_share": bound_ms / cold}
 
 
-def join_holds(problem, dev, flush) -> dict:
-    """K2 and K3 at one problem's shapes on the card: each held equal to
-    its plain version on the same device inputs (K1's output feeds K2), the
-    wrapper's and the kernel's own times, the bound and its share."""
+def k1_ops(M: int, G: int, K: int, W: int) -> int:
+    """K1's integer operations: an AND and an OR per mask word of a pair,
+    about twelve per key of a pair for its flags, bounds and verdict."""
+    return 2 * M * G * K * W + 12 * M * G * K
+
+
+def hold(name: str, inputs, kw: dict, ops: int, flush, shape: dict,
+         plan=None) -> dict:
+    """One kernel on prepared CUDA inputs: held equal to its plain version,
+    the wrapper's and the kernel's own times, the bound and its share."""
     import torch
+    from karpenter_tpu_torch.ops import kernels
+    wrapper = getattr(kernels, name)
+    plain = getattr(kernels, f"{name}_plain")
+    got, want = wrapper(*inputs, **kw), plain(*inputs, **kw)
+    torch.cuda.synchronize()
+    equal, err = _compare(got, want)
+    assert equal, f"{name} at {shape}: kernel and plain version disagree " \
+                  f"(max abs err {err})"
+    moved = _nbytes(*inputs) + _nbytes(got)
+    bound_ms, bound_by = _bound(moved, ops)
+    rec = {"shape": shape, "equal": equal, "max_abs_err": err,
+           "ms": _time_ms(lambda: wrapper(*inputs, **kw)),
+           "plain_ms": _time_ms(lambda: plain(*inputs, **kw)),
+           **_alone(name, inputs, kw, bound_ms, flush),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+           "ops": ops}
+    if plan is not None:
+        rec["plan"] = plan._asdict()
+    return rec
+
+
+def join_holds(problem, dev, flush) -> dict:
+    """K1, K2 and K3 at one problem's shapes on the card, each through
+    hold() on the same device inputs (K1's output feeds K2)."""
     from karpenter_tpu_torch.ops import binpack, kernels
     args, statics = binpack.device_args(problem, binpack.ArgPlacer(dev))
     (group, template, it, group_req, daemon, alloc, template_its, off_zone,
      off_captype, off_avail, zone_values, allow_undef, tol_template,
      exist, exist_avail, tol_exist) = args
     assert statics["has_exist"], "the problem has no existing nodes"
-    cmb, compat_tm = kernels.combine_compat(template, group, allow_undef)
+    k1_in = (template, group, allow_undef)
+    cmb, compat_tm = kernels.combine_compat(*k1_in)
     kw = dict(zone_key=statics["zone_key"],
               captype_key=statics["captype_key"])
     G, K, W = group.mask.shape
     M, T, N = template.mask.shape[0], it.mask.shape[0], exist.mask.shape[0]
     R, O, Z = group_req.shape[1], off_zone.shape[1], zone_values.shape[0]
     MG = M * G
+    shape = problem_shape(G, M, T, N, K, W)
     k2_in = (cmb, compat_tm, it, group_req, daemon, alloc, template_its,
              off_zone, off_captype, off_avail, zone_values, tol_template)
     k3_in = (group, group_req, exist, exist_avail, tol_exist)
-    cases = {
-        "catalog_feasibility": (
-            k2_in, kw, kernels.catalog_feasibility,
-            kernels.catalog_feasibility_plain,
-            MG * T * (2 * K * W + 8 * K + 3 * R + 2 * O * Z),
+    return {
+        "combine_compat": hold(
+            "combine_compat", k1_in, {}, k1_ops(M, G, K, W), flush, shape,
+            kernels.combine_plan(M, G, K, W)),
+        "catalog_feasibility": hold(
+            "catalog_feasibility", k2_in, kw,
+            MG * T * (2 * K * W + 8 * K + 3 * R + 2 * O * Z), flush, shape,
             kernels.join_plan("catalog_feasibility", T, MG, K, W, R=R, O=O,
                               Wz=kernels.zone_pack_layout(Z)[1], Z=Z)),
-        "exist_feasibility": (
-            k3_in, {}, kernels.exist_feasibility,
-            kernels.exist_feasibility_plain,
-            G * N * (2 * K * W + 9 * K + 2 * R),
+        "exist_feasibility": hold(
+            "exist_feasibility", k3_in, {},
+            G * N * (2 * K * W + 9 * K + 2 * R), flush, shape,
             kernels.join_plan("exist_feasibility", N, G, K, W, R=R)),
     }
-    out = {}
-    for name, (inputs, kw_, wrapper, plain, ops, plan) in cases.items():
-        got, want = wrapper(*inputs, **kw_), plain(*inputs, **kw_)
-        torch.cuda.synchronize()
-        equal, err = _compare(got, want)
-        assert equal, f"{name} at {problem_shape(G, M, T, N, K, W)}: " \
-                      f"kernel and plain version disagree (max abs err " \
-                      f"{err})"
-        moved = _nbytes(*inputs) + _nbytes(got)
-        bound_ms, bound_by = _bound(moved, ops)
-        out[name] = {"shape": problem_shape(G, M, T, N, K, W),
-                     "equal": equal, "max_abs_err": err,
-                     "ms": _time_ms(lambda: wrapper(*inputs, **kw_)),
-                     "plain_ms": _time_ms(lambda: plain(*inputs, **kw_)),
-                     **_alone(name, inputs, kw_, bound_ms, flush),
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes": moved, "ops": ops, "plan": plan._asdict()}
-    return out
 
 
 def problem_shape(G, M, T, N, K, W) -> dict:
@@ -1183,7 +1246,7 @@ def main() -> None:
         "combine_compat": dict(
             fns=(k1, k1p), replaces="karpenter_tpu/ops/binpack.py:160",
             bytes_in=_nbytes(template, group, allow_undef),
-            ops=2 * MG * K * W + 12 * MG * K),
+            ops=k1_ops(M, G, K, W)),
         "catalog_feasibility": dict(
             fns=(k2, k2p), replaces="karpenter_tpu/ops/binpack.py:160",
             bytes_in=_nbytes(*k2_in),
@@ -1232,15 +1295,20 @@ def main() -> None:
         rows[name]["device_ms"] = _device_ms(
             _profile(checks[name]["fns"][0]), name)
     rows["offering_compat"]["offerings_examined"] = examined
-    # K1-K3 alone: back-to-back launches on the inputs above, and one launch
-    # at a time after a 128 MB buffer (beyond the 50 MB L2) is written
+    # each kernel alone: back-to-back launches on the inputs above, and one
+    # launch at a time after a 128 MB buffer (beyond the 50 MB L2) is
+    # written
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     for name, (a, kw) in {"combine_compat": ((template, group, allow_undef),
                                              {}),
                           "catalog_feasibility": (k2_in, cat),
-                          "exist_feasibility": (k3_in, {})}.items():
+                          "exist_feasibility": (k3_in, {}),
+                          "fits_matrix": (b5a_in, {}),
+                          "offering_compat": (b5b_in, {})}.items():
         rows[name].update(_alone(name, a, kw, rows[name]["bound_ms"],
                                  flush))
+    rows["combine_compat"]["plan"] = kernels.combine_plan(
+        M, G, K, W)._asdict()
     rows["catalog_feasibility"]["plan"] = kernels.join_plan(
         "catalog_feasibility", T, MG, K, W, R=R, O=O,
         Wz=kernels.zone_pack_layout(Z)[1], Z=Z)._asdict()
@@ -1299,7 +1367,12 @@ def main() -> None:
     # 4 + 5. the main path: cold solve, then against existing nodes. Each
     # path below zeroes the launch counts just before it and reads them
     # just after
-    paths, tiles = {}, {}
+    paths, tiles, k1_plans = {}, {}, {}
+
+    def record(path: str) -> None:
+        """The path's launches, K2 / K3 tiles and K1 geometries."""
+        paths[path] = dict(kernels.LAUNCHES)
+        tiles[path], k1_plans[path] = _tiles(paths[path])
     _record_tiles(kernels)
     _reset_counts(kernels)
     runs = {}
@@ -1322,8 +1395,7 @@ def main() -> None:
                "errors": len(results.pod_errors),
                "errors_by_kind": _errors_by_kind(pods, results),
                "phases_ms": phase_millis(trace) if trace else {}})
-    paths["solve"] = dict(kernels.LAUNCHES)
-    tiles["solve"] = _tiles(paths["solve"])
+    record("solve")
 
     # device time and idle share of one solve of each kind, from a trace;
     # each kernel's device time per launch from the solve with nodes, which
@@ -1371,8 +1443,7 @@ def main() -> None:
                                          None, mesh=m)
             if best is None or elapsed < best[0]:
                 best = (elapsed, TRACER.last(), results)
-        paths[f"solve_mesh_{label}"] = dict(kernels.LAUNCHES)
-        tiles[f"solve_mesh_{label}"] = _tiles(paths[f"solve_mesh_{label}"])
+        record(f"solve_mesh_{label}")
         assert _rungs() == rungs, f"left the mesh rung: {_rungs()}"
         same = decision_digest(best[2], pods, "", (len(pods), 0)) == \
             decision_digest(runs["existing_nodes"], pods, "", (len(pods), 0))
@@ -1382,9 +1453,25 @@ def main() -> None:
                "best_s": best[0], "pods_per_s": len(pods) / best[0],
                "digest_equals_single": same, "rung": "mesh",
                "spans_ms": _top_spans(best[1])})
-    _emit({"phase": "profile_mesh_4x2", **_profile(
-        lambda: _solve(ts_mod, pool, catalog, pods, nodes, None,
-                       mesh=mesh8))})
+    # the inputs of K1 on the first 4x2 slot (32 groups a slot), kept from
+    # one more 4x2 solve outside every timed window
+    with _keeping_k1_inputs(kernels) as kept:
+        _solve(ts_mod, pool, catalog, pods, nodes, None, mesh=mesh8)
+    assert len(kept) == 1, f"4x2 mesh K1 shapes: {set(kept)}"
+    (slot_key, slot_in), = kept.items()
+    prof = _profile(lambda: _solve(ts_mod, pool, catalog, pods, nodes, None,
+                                   mesh=mesh8))
+    _emit({"phase": "profile_mesh_4x2", **prof})
+    # K1 on the inputs of the first 4x2 slot: held, timed alone, beside its
+    # device time per launch in the profiled 4x2 solve
+    sM, sG, sK, sW = slot_key
+    slot = hold("combine_compat", slot_in, {},
+                k1_ops(sM, sG, sK, sW), flush,
+                {"M": sM, "G": sG, "K": sK, "W": sW},
+                kernels.combine_plan(sM, sG, sK, sW))
+    slot["device_ms"] = _device_ms(prof, "combine_compat")
+    rows["combine_compat"]["mesh_slot"] = slot
+    _emit({"phase": "k1_at_mesh_slot", **slot})
 
     # 8. warm passes through one ProblemState on the card, each held to a
     # cold solve of the same inputs; the nodes are a fresh copy that the
@@ -1392,8 +1479,7 @@ def main() -> None:
     _reset_counts(kernels)
     cold_digests, recs = warm_churn(ts_mod, pool, catalog, pods,
                                     existing_nodes(catalog), span, DEVICE)
-    paths["warm_churn"] = dict(kernels.LAUNCHES)
-    tiles["warm_churn"] = _tiles(paths["warm_churn"])
+    record("warm_churn")
     _emit({"phase": "warm_churn_summary", "by_window": _summary(recs)})
 
     # 9. the same windows through the sharded ProblemState on an 8-slot
@@ -1405,8 +1491,7 @@ def main() -> None:
     _, recs = warm_churn(ts_mod, pool, catalog, pods,
                          existing_nodes(catalog), span, DEVICE, mesh=mesh8,
                          cold_digests=cold_digests, phase="warm_churn_mesh")
-    paths["warm_churn_mesh"] = dict(kernels.LAUNCHES)
-    tiles["warm_churn_mesh"] = _tiles(paths["warm_churn_mesh"])
+    record("warm_churn_mesh")
     assert _rungs() == rungs, f"left the mesh rung: {_rungs()}"
     _emit({"phase": "warm_churn_mesh_summary", "mesh": repr(mesh8),
            "by_window": _summary(recs)})
@@ -1420,8 +1505,7 @@ def main() -> None:
     _, sharded, elapsed = _solve(ts_mod, pool, catalog, pods, (), DEVICE,
                                  pack_shards=PACK_SHARDS)
     trace = TRACER.last()
-    paths["solve_sharded_pack"] = dict(kernels.LAUNCHES)
-    tiles["solve_sharded_pack"] = _tiles(paths["solve_sharded_pack"])
+    record("solve_sharded_pack")
     assert "pack.shards" in phase_millis(trace), "the pack was not sharded"
     _, sharded_cpu, cpu_s = _solve(ts_mod, pool, catalog, pods, (), "cpu",
                                    pack_shards=PACK_SHARDS)
@@ -1442,8 +1526,7 @@ def main() -> None:
     # decisions equal to the same pass through the plain versions on the CPU
     _reset_counts(kernels)
     gpu_passes = provisioner_passes(DEVICE)
-    paths["provisioner_pass"] = dict(kernels.LAUNCHES)
-    tiles["provisioner_pass"] = _tiles(paths["provisioner_pass"])
+    record("provisioner_pass")
     cpu_passes = provisioner_passes("cpu")
     for g, c in zip(gpu_passes, cpu_passes, strict=True):
         assert g["digest"] == c["digest"], \
@@ -1463,8 +1546,7 @@ def main() -> None:
     env = underutilized_fleet(DEVICE)
     _reset_counts(kernels)
     cands, cmd, seconds, probes, trace, method = multi_consolidation(env)
-    paths["consolidation_multi"] = dict(kernels.LAUNCHES)
-    tiles["consolidation_multi"] = _tiles(paths["consolidation_multi"])
+    record("consolidation_multi")
     assert len(cands) == N_NODES, len(cands)
     assert cmd.candidates, "no consolidation decision found"
     multi_cands = sorted(cands, key=lambda c: c.disruption_cost)[:100]
@@ -1472,15 +1554,15 @@ def main() -> None:
     before = dict(kernels.LAUNCHES)
     prof = _profile(lambda: multi_consolidation(env, repeats=0))
     profiled = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-    # K2 and K3 at the disruption encode's shapes (G padded to 8, W = 8):
-    # held against their plain versions, timed alone, beside the device time
-    # of their launches in the profiled pass
+    # K1-K3 at the disruption encode's shapes (G padded to 8, W = 8): held
+    # against their plain versions, timed alone, beside the device time of
+    # their launches in the profiled pass
     for name, r in join_holds(disruption_encoding(env, multi_cands).problem,
                               dev, flush).items():
         r["device_ms"] = _device_ms(prof, name)
         rows[name]["disruption"] = r
     _emit({"phase": "kernels_at_disruption_shape", "kernels": {
-        name: rows[name]["disruption"] for name in FEASIBILITY[1:]}})
+        name: rows[name]["disruption"] for name in FEASIBILITY}})
     cpu_env = underutilized_fleet("cpu")
     _, cpu_cmd, cpu_seconds, _, _, _ = multi_consolidation(cpu_env,
                                                            repeats=0)
@@ -1509,8 +1591,7 @@ def main() -> None:
     env = stuck_fleet(DEVICE)
     _reset_counts(kernels)
     cands, cmd_d, seconds, stats, trace = single_consolidation(env)
-    paths["consolidation_single"] = dict(kernels.LAUNCHES)
-    tiles["consolidation_single"] = _tiles(paths["consolidation_single"])
+    record("consolidation_single")
     single_shapes = encoding_shapes(env, cands)
     assert len(cands) == N_NODES, len(cands)
     assert cmd_d[:2] == ("delete", [f"single-node-{N_NODES - 1:05d}"]), cmd_d
@@ -1564,8 +1645,7 @@ def main() -> None:
             assert set(stream.last["layers"].values()) == {"reused"}, \
                 stream.last
             assert stream.last["rows_rebuilt"] == 0, stream.last
-    paths["disruption_controller"] = dict(kernels.LAUNCHES)
-    tiles["disruption_controller"] = _tiles(paths["disruption_controller"])
+    record("disruption_controller")
     decision = passes[0]["command"]
     assert decision[:2] == ("delete", [f"dscale-node-{N_NODES - 1:05d}"]), \
         decision
@@ -1608,7 +1688,8 @@ def main() -> None:
         for name, *_, ra, rb, stages, n in path_tiles:
             by_tile = used.setdefault(name, {})
             by_tile[f"{ra}x{rb}"] = by_tile.get(f"{ra}x{rb}", 0) + n
-    _emit({"phase": "join_plans", "tiles_used": used, "paths": tiles})
+    _emit({"phase": "join_plans", "tiles_used": used, "paths": tiles,
+           "combine_plans": k1_plans})
     on_paths = {name for names in expect.values() for name in names}
     for name, n in total.items():
         assert n > 0 or name not in on_paths, \

@@ -8,49 +8,167 @@
 //                              && admits(mask_b[b, captype_key],
 //                                        off_captype[t, o]))
 // admits(row, v) is true for v = -1 (the offering does not constrain the
-// key; never read) and for a value index at or past 32 * W — the reference
-// gathers with jnp.take_along_axis, whose out-of-range fill for uint32 is
-// all ones — and otherwise is bit v of the row. No word past W is read.
+// key; never read) and otherwise kt_bit_fill: bit v of the row, and true for
+// a value index at or past 32 * W — the reference gathers with
+// jnp.take_along_axis, whose out-of-range fill for uint32 is all ones. No
+// word past W is read.
 //
 // Bound: operations, narrowly. At B = 120 rows, T = 2,000 types and O = 8
 // offerings the test is at most B * T * O = 1.9M offering checks of about
 // ten integer operations each, over 0.06 MB of zone and capacity-type mask
 // words, 0.14 MB of offerings and 0.24 MB of output bytes: under a
-// microsecond either way, so the launch dominates.
+// microsecond either way, so the launch and one round trip are what the
+// card pays.
 //
-// Design: one thread per (b, t), t fastest, so a warp's offering reads are
-// contiguous and its byte stores coalesce; the warp shares its row's two
-// mask keys through L1. The O loop runs in registers and stops at the first
-// admitted offering. The uint32 mask words arrive as int32 bits and are
-// read as uint32.
-#include <cstdint>
-#include <cuda_runtime.h>
+// Design: a block of OC_THREADS threads takes a tile of OC_THREADS types
+// and `rows` rows (the launcher's OC_ROWS, halved while the staging would
+// not fit): 480 blocks at B = 120, T = 2,000, about 3.6 an SM, so that
+// each scheduler has warps to switch between (tiles of 1, 2, 8 and 16 rows
+// measured slower on the card). One group of asynchronous
+// copies stages the tile's offerings (zone, capacity type, availability:
+// contiguous in [T, O]) and the rows' zone and capacity-type mask words in
+// shared memory, 16 bytes a copy where source and destination allow.
+// Thread t then reads type t's offerings into registers, OC_CHUNK at a time
+// (16-byte shared loads when O % 4 == 0: a type's offerings are 32 bytes
+// apart at O = 8, so word loads would meet eight to a bank), and tests
+// every row of the tile against all of them: the rows unrolled, no early
+// exit, and an unconstrained offering read at index 0 and admitted by the
+// OR, so every mask word a row needs is one independent shared load. The
+// byte stores come last, coalesced along t. Index arithmetic is 32-bit:
+// the wrapper refuses tensors of 2^31 elements or more.
+#include "feasibility_common.cuh"
 
-__device__ __forceinline__ bool oc_admits(const uint32_t* __restrict__ row,
-                                          int W, int32_t v) {
-  if (v < 0) return true;
-  const int32_t word = v >> 5;
-  if (word >= W) return true;
-  return (__ldg(row + word) >> (v & 31)) & 1u;
+#define OC_THREADS 128  // = KT_JOIN_THREADS: the copy helpers' stride
+#define OC_ROWS 4
+#define OC_CHUNK 8
+
+// Byte offsets of the staged tile in dynamic shared memory.
+struct OcLayout {
+  int zone, captype, zrows, crows, avail, total;
+};
+
+__host__ __device__ inline OcLayout oc_layout(int rows, int W, int O) {
+  OcLayout l;
+  const int offers = OC_THREADS * O * 4;
+  const int words = rows * W * 4;
+  l.zone = 0;
+  l.captype = (int)kt_align(offers);
+  l.zrows = l.captype + (int)kt_align(offers);
+  l.crows = l.zrows + (int)kt_align(words);
+  l.avail = l.crows + (int)kt_align(words);
+  l.total = l.avail + (int)kt_align(OC_THREADS * O);
+  return l;
+}
+
+// n words from global `src` to shared `dst`: 16-byte copies when both ends
+// are 16-byte aligned, else one word a copy.
+__device__ __forceinline__ void oc_copy_words(uint32_t* dst,
+                                              const uint32_t* src, int n) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if ((uintptr_t)src % 16 == 0 && d % 16 == 0) {
+    const int v = n / 4;
+    for (int i = threadIdx.x; i < v; i += OC_THREADS)
+      kt_cp_async16(d + 16 * i, src + 4 * i);
+    for (int i = 4 * v + threadIdx.x; i < n; i += OC_THREADS)
+      kt_cp_async4(d + 4 * i, src + i);
+  } else {
+    kt_copy_words(dst, src, n);
+  }
+}
+
+// One key's W words of `nb` rows from row b0 (rows K * W words apart) to
+// shared `dst` (rows W words apart).
+__device__ __forceinline__ void oc_copy_rows(uint32_t* dst,
+                                             const uint32_t* mask, int b0,
+                                             int nb, int K, int W, int key) {
+  const uint32_t* src = mask + (b0 * K + key) * W;
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const bool vec = W % 4 == 0 && (uintptr_t)src % 16 == 0 && d % 16 == 0;
+  const int per = vec ? W / 4 : W;  // copies a row
+  for (int i = threadIdx.x; i < nb * per; i += OC_THREADS) {
+    const int r = i / per, c = i - r * per;
+    if (vec)
+      kt_cp_async16(d + 4 * (r * W + 4 * c), src + r * K * W + 4 * c);
+    else
+      kt_cp_async4(d + 4 * (r * W + c), src + r * K * W + c);
+  }
 }
 
 __global__ void offering_compat_kernel(
     const uint32_t* __restrict__ mask_b, const int32_t* __restrict__ off_zone,
     const int32_t* __restrict__ off_captype,
     const unsigned char* __restrict__ off_avail, int B, int T, int K, int W,
-    int O, int zone_key, int captype_key, unsigned char* __restrict__ out) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)B * T) return;
-  const size_t b = i / T, t = i % T;
-  const uint32_t* zrow = mask_b + (b * K + zone_key) * W;
-  const uint32_t* crow = mask_b + (b * K + captype_key) * W;
-  bool ok = false;
-  for (int o = 0; o < O && !ok; ++o) {
-    const size_t to = t * O + o;
-    ok = off_avail[to] != 0 && oc_admits(zrow, W, __ldg(off_zone + to)) &&
-         oc_admits(crow, W, __ldg(off_captype + to));
+    int O, int zone_key, int captype_key, int rows,
+    unsigned char* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const OcLayout L = oc_layout(rows, W, O);
+  const int t0 = blockIdx.x * OC_THREADS, b0 = blockIdx.y * rows;
+  const int nt = min(OC_THREADS, T - t0), nb = min(rows, B - b0);
+  int32_t* s_zone = (int32_t*)(smem + L.zone);
+  int32_t* s_cap = (int32_t*)(smem + L.captype);
+  const uint32_t* s_zrows = (const uint32_t*)(smem + L.zrows);
+  const uint32_t* s_crows = (const uint32_t*)(smem + L.crows);
+  unsigned char* s_avail = smem + L.avail;
+
+  oc_copy_words((uint32_t*)s_zone, (const uint32_t*)off_zone + t0 * O,
+                nt * O);
+  oc_copy_words((uint32_t*)s_cap, (const uint32_t*)off_captype + t0 * O,
+                nt * O);
+  oc_copy_rows((uint32_t*)s_zrows, mask_b, b0, nb, K, W, zone_key);
+  oc_copy_rows((uint32_t*)s_crows, mask_b, b0, nb, K, W, captype_key);
+  kt_copy_bytes(s_avail, 0, off_avail + t0 * O, 0, 1, nt * O);
+  kt_cp_commit();
+  kt_cp_wait<0>();
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  if (t >= nt) return;  // no barrier follows
+  bool hit[OC_ROWS] = {};
+  for (int o0 = 0; o0 < O; o0 += OC_CHUNK) {
+    // type t's offerings o0 .. o0 + OC_CHUNK - 1; those past O unavailable
+    int32_t zone[OC_CHUNK], cap[OC_CHUNK];
+    bool avail[OC_CHUNK];
+    if (O % 4 == 0) {
+#pragma unroll
+      for (int j = 0; j < OC_CHUNK; j += 4) {
+        const int i = t * O + o0 + j;
+        const bool in = o0 + j < O;  // then so are the next three
+        const int4 z = in ? *(const int4*)(s_zone + i) : make_int4(0, 0, 0, 0);
+        const int4 c = in ? *(const int4*)(s_cap + i) : make_int4(0, 0, 0, 0);
+        const uint32_t av = in ? *(const uint32_t*)(s_avail + i) : 0u;
+        zone[j] = z.x, zone[j + 1] = z.y, zone[j + 2] = z.z, zone[j + 3] = z.w;
+        cap[j] = c.x, cap[j + 1] = c.y, cap[j + 2] = c.z, cap[j + 3] = c.w;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) avail[j + q] = (av >> (8 * q)) & 0xffu;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < OC_CHUNK; ++j) {
+        const int i = t * O + o0 + j;
+        const bool in = o0 + j < O;
+        zone[j] = in ? s_zone[i] : 0;
+        cap[j] = in ? s_cap[i] : 0;
+        avail[j] = in && s_avail[i] != 0;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < OC_ROWS; ++b) {
+      // rows past the tile repeat its last row; their verdicts are dropped
+      const int r = min(b, nb - 1);
+      const uint32_t* zrow = s_zrows + r * W;
+      const uint32_t* crow = s_crows + r * W;
+      bool ok = false;
+#pragma unroll
+      for (int j = 0; j < OC_CHUNK; ++j)
+        ok |= avail[j] &
+              ((zone[j] < 0) | kt_bit_fill(zrow, max(zone[j], 0), W)) &
+              ((cap[j] < 0) | kt_bit_fill(crow, max(cap[j], 0), W));
+      hit[b] |= ok;
+    }
   }
-  out[i] = ok;
+#pragma unroll
+  for (int b = 0; b < OC_ROWS; ++b)
+    if (b < nb) out[(b0 + b) * T + t0 + t] = hit[b];
 }
 
 extern "C" int kt_offering_compat(const void* mask_b, const void* off_zone,
@@ -58,12 +176,17 @@ extern "C" int kt_offering_compat(const void* mask_b, const void* off_zone,
                                   const void* off_avail, int B, int T, int K,
                                   int W, int O, int zone_key, int captype_key,
                                   void* out, void* stream) {
-  const int threads = 256;
-  const size_t n = (size_t)B * T;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  offering_compat_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  int rows = OC_ROWS;
+  while (rows > 1 && (size_t)oc_layout(rows, W, O).total > 227 * 1024)
+    rows /= 2;
+  const size_t smem = oc_layout(rows, W, O).total;
+  cudaError_t err = kt_allow_smem(offering_compat_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((T + OC_THREADS - 1) / OC_THREADS),
+                  (unsigned)((B + rows - 1) / rows));
+  offering_compat_kernel<<<grid, OC_THREADS, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)mask_b, (const int32_t*)off_zone,
       (const int32_t*)off_captype, (const unsigned char*)off_avail, B, T, K, W,
-      O, zone_key, captype_key, (unsigned char*)out);
+      O, zone_key, captype_key, rows, (unsigned char*)out);
   return (int)cudaGetLastError();
 }

@@ -54,7 +54,7 @@ _LIB_LOCK = threading.Lock()
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "combine_compat": [_VP] * 13 + [_I] * 4 + [_VP] * 8,
+    "combine_compat": [_VP] * 13 + [_I] * 7 + [_VP] * 8,
     "catalog_feasibility": [_VP] * 20 + [_I] * 15 + [_VP] * 4,
     "exist_feasibility": [_VP] * 13 + [_I] * 8 + [_VP] * 3,
     "row_splice": [_VP] * 3 + [_I] + [_VP],
@@ -217,7 +217,7 @@ def _launch(name: str, device, *args) -> None:
 
 
 def launcher(name: str, *inputs, **kw):
-    """(launch, outputs) for one of K1-K3 or row_splice (on staged rows,
+    """(launch, outputs) for any of the kernels (row_splice on staged rows:
     row_splice_staged's arguments) on CUDA inputs: the wrapper's
     checks and output allocation done once, and a callable that launches
     the kernel on them again with nothing else around it (no checks, no
@@ -357,6 +357,34 @@ def join_plan(kind: str, rows_a: int, rows_b: int, K: int, W: int, *,
 # K1 combine_compat
 # --------------------------------------------------------------------------
 
+class CombinePlan(NamedTuple):
+    vec: int         # mask words a load / store moves: 4 (16 bytes) or 1
+    lanes: int       # lanes of a warp that share one key (a power of two)
+    units: int       # loads of vec words a lane makes per key
+    threads: int     # threads a block (a multiple of 32)
+    slots: int       # keys a block takes at once: threads // lanes
+    rounds: int      # passes of a block over the keys
+    grid_g: int      # blocks along g
+    grid_m: int      # blocks along m
+
+
+def combine_plan(M: int, G: int, K: int, W: int, *,
+                 aligned: bool = True) -> CombinePlan:
+    """The geometry of one K1 launch over M x G pairs of K keys of W words
+    (csrc/combine_compat.cu), one pair a block. A key's words go to a
+    power-of-two group of lanes of one warp, enough for one load each up to
+    32 lanes (16-byte loads when ``aligned`` (every row starts 16-byte
+    aligned) and W % 4 == 0, words otherwise); a block holds every key of
+    its pair, or 1,024 threads' worth at a time."""
+    vec = 4 if aligned and W % 4 == 0 else 1
+    units = W // vec
+    lanes = min(32, 1 << max(0, units - 1).bit_length())
+    threads = min(1024, -(-max(K, 1) * lanes // 32) * 32)
+    slots = threads // lanes
+    return CombinePlan(vec, lanes, -(-units // lanes), threads, slots,
+                       -(-K // slots), G, M)
+
+
 def combine_compat_plain(template: Enc, group: Enc,
                          allow_undefined: torch.Tensor
                          ) -> Tuple[Enc, torch.Tensor]:
@@ -400,8 +428,14 @@ def _combine_compat_args(template: Enc, group: Enc,
               gt=torch.empty((MG, K), dtype=torch.int32, device=dev),
               lt=torch.empty((MG, K), dtype=torch.int32, device=dev))
     compat_tm = torch.empty((M, G), dtype=torch.bool, device=dev)
-    args = ((*ptrs, M, G, K, W, *(x.data_ptr() for x in cmb),
-             compat_tm.data_ptr()) if MG else None)
+    args = None
+    if MG:
+        aligned = all(x.data_ptr() % 16 == 0
+                      for x in (template.mask, group.mask, cmb.mask))
+        plan = combine_plan(M, G, K, W, aligned=aligned)
+        args = (*ptrs, M, G, K, W, plan.vec, plan.lanes, plan.threads,
+                *(x.data_ptr() for x in cmb),
+                compat_tm.data_ptr())
     return dev, args, (cmb, compat_tm)
 
 
@@ -688,12 +722,6 @@ def _row_splice_args(bufs, staged, start: int):
     return dstage.device, (dst, src, count, n), None
 
 
-_PREPARE = {"combine_compat": _combine_compat_args,
-            "catalog_feasibility": _catalog_feasibility_args,
-            "exist_feasibility": _exist_feasibility_args,
-            "row_splice": _row_splice_args}
-
-
 # --------------------------------------------------------------------------
 # B5a fits_matrix, B5b offering_compat
 # --------------------------------------------------------------------------
@@ -704,15 +732,22 @@ def fits_matrix(requests: torch.Tensor, available: torch.Tensor
     over r of (req <= 0 or req <= avail)."""
     if not _on_cuda(requests):
         return feas.fits_matrix(requests, available)
+    dev, args, out = _fits_matrix_args(requests, available)
+    if args is not None:
+        _launch("fits_matrix", dev, *args)
+    return out
+
+
+def _fits_matrix_args(requests: torch.Tensor, available: torch.Tensor):
+    """(device, launch arguments or None, output) of B5a on CUDA inputs."""
     dev = requests.device
     B, R = requests.shape
     A = available.shape[0]
     ptrs = [_check("requests", requests, torch.int32, (B, R), dev),
             _check("available", available, torch.int32, (A, R), dev)]
     out = torch.empty((A, B), dtype=torch.bool, device=dev)
-    if A and B:
-        _launch("fits_matrix", dev, *ptrs, A, B, R, out.data_ptr())
-    return out
+    args = (*ptrs, A, B, R, out.data_ptr()) if A and B else None
+    return dev, args, out
 
 
 def offering_compat(mask_b: torch.Tensor, zone_key: int, captype_key: int,
@@ -725,6 +760,21 @@ def offering_compat(mask_b: torch.Tensor, zone_key: int, captype_key: int,
     if not _on_cuda(mask_b):
         return feas.offering_compat(mask_b, zone_key, captype_key, off_zone,
                                      off_captype, off_available)
+    dev, args, out = _offering_compat_args(mask_b, zone_key, captype_key,
+                                           off_zone, off_captype,
+                                           off_available)
+    if args is not None:
+        _launch("offering_compat", dev, *args)
+    return out
+
+
+def _offering_compat_args(mask_b: torch.Tensor, zone_key: int,
+                          captype_key: int, off_zone: torch.Tensor,
+                          off_captype: torch.Tensor,
+                          off_available: torch.Tensor):
+    """(device, launch arguments or None, output) of B5b on CUDA inputs.
+    The kernel indexes in 32 bits: every tensor must hold fewer than 2^31
+    elements."""
     dev = mask_b.device
     B, K, W = mask_b.shape
     T, O = off_zone.shape
@@ -732,12 +782,22 @@ def offering_compat(mask_b: torch.Tensor, zone_key: int, captype_key: int,
         if not 0 <= key < K:
             raise ValueError(f"offering_compat: {name} {key} outside "
                              f"[0, {K})")
+    if max(B * K * W, B * T, T * O) > INT32_MAX:
+        raise ValueError(f"offering_compat: [{B}, {K}, {W}] masks x [{T}, "
+                         f"{O}] offerings exceed 32-bit indexing")
     ptrs = [_check("mask_b", mask_b, torch.int32, (B, K, W), dev),
             _check("off_zone", off_zone, torch.int32, (T, O), dev),
             _check("off_captype", off_captype, torch.int32, (T, O), dev),
             _check("off_available", off_available, torch.bool, (T, O), dev)]
     out = torch.empty((B, T), dtype=torch.bool, device=dev)
-    if B and T:
-        _launch("offering_compat", dev, *ptrs, B, T, K, W, O, zone_key,
-                captype_key, out.data_ptr())
-    return out
+    args = ((*ptrs, B, T, K, W, O, zone_key, captype_key, out.data_ptr())
+            if B and T else None)
+    return dev, args, out
+
+
+_PREPARE = {"combine_compat": _combine_compat_args,
+            "catalog_feasibility": _catalog_feasibility_args,
+            "exist_feasibility": _exist_feasibility_args,
+            "row_splice": _row_splice_args,
+            "fits_matrix": _fits_matrix_args,
+            "offering_compat": _offering_compat_args}

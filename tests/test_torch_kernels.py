@@ -188,6 +188,132 @@ def test_row_splice_refuses_what_it_does_not_take():
                            [np.zeros((2, 3), np.int32)], 0)
 
 
+# -- K1 combine_compat: its plain version and its geometry -------------------
+
+#: K1's geometry edges: keys around a warp, words per key around a 16-byte
+#: vector and past 32 lanes, pair counts around the launch shapes (0, 8 at
+#: the disruption encodes, 32 at a 4x2 mesh slot, 120-128 at the north star)
+K1_KEYS = (1, 9, 33)
+K1_WORDS = (1, 3, 4, 8, 64, 65)
+K1_PAIRS = ((1, 0), (1, 1), (1, 8), (1, 32), (3, 43))
+
+
+def rand_encoded(rng, rows, K, W):
+    """Random encoded rows (numpy, as the encoder gives them): sparse masks
+    (about two nonzero words of four bits per key), so intersections come
+    out both empty and nonempty, and some Gt/Lt bounds."""
+    from karpenter_tpu_torch.ops.encode import EncodedRequirements
+    mask = (rng.integers(0, 16, (rows, K, W))
+            * (rng.random((rows, K, W)) < 2.0 / W)).astype(np.uint32)
+    mask[..., 0] |= (rng.random((rows, K)) < 0.3).astype(np.uint32) << 31
+    bound = lambda fill: np.where(  # noqa: E731
+        rng.random((rows, K)) < 0.2, rng.integers(-3, 9, (rows, K)),
+        fill).astype(np.int32)
+    return EncodedRequirements(
+        mask=mask, defined=rng.random((rows, K)) < 0.6,
+        complement=rng.random((rows, K)) < 0.5,
+        exempt=rng.random((rows, K)) < 0.2, gt=bound(-2**31),
+        lt=bound(2**31 - 1))
+
+
+def _combine_compat_both(M, G, K, W, seed):
+    """(JAX compatible_matrix + combine flattened m-major, the port's
+    combine_compat_plain) on the same random rows."""
+    from karpenter_tpu.ops import feasibility as jfeas
+    from karpenter_tpu_torch.ops import feasibility as tfeas
+    rng = np.random.default_rng(seed)
+    template, group = rand_encoded(rng, M, K, W), rand_encoded(rng, G, K, W)
+    group.defined[:1] = False       # a group every template is compatible with
+    allow = rng.random(K) < 0.4
+    jt, jg = jfeas.to_device(template), jfeas.to_device(group)
+    want_tm = np.asarray(jfeas.compatible_matrix(jt, jg, allow))
+    want = [np.asarray(x).reshape((M * G,) + x.shape[2:]) for x in
+            jfeas.combine(jfeas.Enc(*(x[:, None] for x in jt)),
+                          jfeas.Enc(*(x[None, :] for x in jg)))]
+    cmb, compat_tm = kernels.combine_compat_plain(
+        tfeas.to_device(template, "cpu"), tfeas.to_device(group, "cpu"),
+        torch.from_numpy(allow))
+    got = [x.numpy() for x in cmb]
+    got[0] = got[0].view(np.uint32)
+    for name, w, g in zip(("mask",) + tfeas.Enc._fields[1:], want, got):
+        assert w.dtype == g.dtype and np.array_equal(w, g), name
+    assert np.array_equal(want_tm, compat_tm.numpy())
+    return compat_tm
+
+
+@pytest.mark.parametrize("K", K1_KEYS)
+@pytest.mark.parametrize("W", K1_WORDS)
+def test_combine_compat_plain_matches_jax_at_the_key_and_word_edges(K, W):
+    compat_tm = _combine_compat_both(3, 43, K, W, seed=K * 100 + W)
+    assert compat_tm.any() and not compat_tm.all()
+
+
+@pytest.mark.parametrize("M,G", K1_PAIRS)
+@pytest.mark.parametrize("W", [3, 64])
+def test_combine_compat_plain_matches_jax_at_the_pair_edges(M, G, W):
+    _combine_compat_both(M, G, 9, W, seed=M * G + W)
+
+
+def _combine_word_counts(plan, M, G, K, W):
+    """How many lanes of the launch move each word of the combined rows
+    [M * G, K, W], by the kernel's thread mapping: block (x, y) takes m = y
+    and g = x; thread t is lane t % lanes of
+    key slot t // lanes, which takes key r * slots + slot in round r (k <
+    K); its j-th unit is lane + j * lanes (< W // vec), words [unit * vec,
+    unit * vec + vec)."""
+    t = np.arange(plan.threads)
+    k = (np.arange(plan.rounds)[:, None] * plan.slots
+         + (t // plan.lanes)[None, :])                        # [R, T]
+    u = (np.arange(plan.units)[:, None] * plan.lanes
+         + (t % plan.lanes)[None, :])                         # [N, T]
+    g = np.arange(plan.grid_g)
+    m = np.arange(plan.grid_m)
+    k, u = np.broadcast_arrays(k[:, None, :], u[None, :, :])  # [R, N, T]
+    keep = (k < K) & (u < W // plan.vec)
+    k, u = k[keep], u[keep]
+    g = g[g < G]
+    pair = (m[:, None] * G + g[None, :]).ravel()
+    words = ((pair[:, None, None] * K + k[None, :, None]) * W
+             + u[None, :, None] * plan.vec
+             + np.arange(plan.vec)[None, None, :]).ravel()
+    return np.bincount(words, minlength=M * G * K * W)
+
+
+@pytest.mark.parametrize("K", K1_KEYS)
+@pytest.mark.parametrize("W", K1_WORDS)
+@pytest.mark.parametrize("M,G", K1_PAIRS[1:] + ((2, 1000),))
+@pytest.mark.parametrize("aligned", [True, False])
+def test_combine_plan_moves_every_word_of_every_pair_once(K, W, M, G,
+                                                          aligned):
+    plan = kernels.combine_plan(M, G, K, W, aligned=aligned)
+    assert plan.vec == (4 if aligned and W % 4 == 0 else 1)
+    assert plan.lanes in (1, 2, 4, 8, 16, 32)
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    assert plan.slots * plan.lanes == plan.threads
+    assert (plan.grid_g, plan.grid_m) == (G, M)
+    assert (_combine_word_counts(plan, M, G, K, W) == 1).all()
+
+
+def test_combine_plan_at_the_main_path_shapes():
+    """One round trip a lane at the three launch shapes: the north star
+    (120 pairs, 9 keys of 64 words: 16 lanes of 16-byte loads a key), a 4x2
+    mesh slot (32 pairs) and a disruption encode (8 pairs of 8 words: 2
+    lanes a key, one warp a pair), a pair a block."""
+    north = kernels.combine_plan(1, 120, 9, 64)
+    assert north == kernels.CombinePlan(vec=4, lanes=16, units=1,
+                                        threads=160, slots=10, rounds=1,
+                                        grid_g=120, grid_m=1)
+    assert kernels.combine_plan(1, 32, 9, 64) == north._replace(grid_g=32)
+    assert kernels.combine_plan(1, 8, 9, 8) == kernels.CombinePlan(
+        vec=4, lanes=2, units=1, threads=32, slots=16, rounds=1,
+        grid_g=8, grid_m=1)
+    wide = kernels.combine_plan(2, 1000, 9, 64)
+    assert (wide.grid_g, wide.grid_m) == (1000, 2)
+    # unaligned rows take words: two loads a lane of 32 lanes a key
+    assert kernels.combine_plan(1, 120, 9, 64, aligned=False)[:4] == (
+        1, 32, 2, 288)
+
+
 # -- B5a fits_matrix, B5b offering_compat ------------------------------------
 
 @pytest.mark.parametrize("A,B,R", [(1, 1, 1), (31, 33, 4), (64, 17, 3)])
@@ -225,6 +351,36 @@ def test_offering_compat_wrapper_matches_jax_on_the_cpu(W):
     want = jfeas.offering_compat(mask, 2, 5, off_zone, off_ct, off_avail)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     assert got.any() and not got.all()
+
+
+@pytest.mark.parametrize("B,T,O", [(1, 1, 1), (3, 127, 3), (4, 128, 8),
+                                   (5, 129, 8), (33, 300, 1), (40, 257, 3),
+                                   (7, 50, 9)])
+def test_offering_compat_wrapper_matches_jax_at_the_tile_edges(B, T, O):
+    """Row and type counts around the kernel's 4-row x 128-type tile, O
+    around its 8-offering chunk, and indices from -1 to past 32 * W."""
+    from karpenter_tpu.ops import feasibility as jfeas
+    rng = np.random.default_rng(B * T * O)
+    K, W = 4, 2
+    mask = rng.integers(0, 2**32, (B, K, W), dtype=np.uint64).astype(
+        np.uint32)
+    off_zone, off_ct = (rng.integers(-1, 32 * W + 9, (T, O)).astype(
+        np.int32) for _ in range(2))
+    off_avail = rng.random((T, O)) < 0.6
+    got = kernels.offering_compat(
+        torch.from_numpy(mask.view(np.int32)), 1, 3,
+        torch.from_numpy(off_zone), torch.from_numpy(off_ct),
+        torch.from_numpy(off_avail))
+    want = jfeas.offering_compat(mask, 1, 3, off_zone, off_ct, off_avail)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_offering_compat_refuses_sizes_past_32_bit_indexing():
+    mask = torch.empty((70_000, 1, 1), dtype=torch.int32)
+    offers = torch.empty((40_000, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="32-bit"):
+        kernels._offering_compat_args(mask, 0, 0, offers, offers,
+                                      offers.bool())
 
 
 # -- the tile plan of K2 / K3 (kernels.join_plan) -----------------------------
@@ -330,12 +486,10 @@ def test_join_ablation_edits_apply_to_the_sources():
             assert count == 1, (variant, name, text, count)
 
 
-@pytest.mark.parametrize("name", ["combine_compat", "catalog_feasibility",
-                                  "exist_feasibility", "row_splice"])
+@pytest.mark.parametrize("name", kernels.KERNELS)
 def test_launch_arguments_match_the_c_signatures(name):
-    """The prepared arguments of K1-K3 and row_splice (launcher, wrappers)
-    are one fewer than the C entry point's parameters: the stream comes
-    last."""
+    """The prepared arguments of every kernel (launcher, wrappers) are one
+    fewer than the C entry point's parameters: the stream comes last."""
     _, problem = build_problem(PORT, mini_workload(PORT))
     args, statics = binpack.device_args(
         dataclasses.replace(problem, device_cache=None),
@@ -357,6 +511,10 @@ def test_launch_arguments_match_the_c_signatures(name):
         "row_splice": (([exist_avail.clone()],
                         (torch.zeros(16, dtype=torch.uint8), [0], [16]), 0),
                        {}),
+        "fits_matrix": ((group_req, exist_avail), {}),
+        "offering_compat": ((group.mask, statics["zone_key"],
+                             statics["captype_key"], off_zone, off_captype,
+                             off_avail), {}),
     }
     a, kw = inputs[name]
     _, launch_args, _ = kernels._PREPARE[name](*a, **kw)

@@ -79,6 +79,60 @@ def test_combine_compat_matches_plain(W):
     assert out[1].any() and not out[1].all()
 
 
+def combine_case(rng, M, G, K, W):
+    """K1's inputs: random rows, the first group defining no key (so every
+    template is compatible with it), a seeded allow-undefined set."""
+    template, group = rand_enc(rng, M, K, W), rand_enc(rng, G, K, W)
+    group.defined[:1] = False
+    return template, group, flags(rng, (K,), 0.4)
+
+
+def assert_combine_matches_plain(template, group, allow):
+    """One launch (none at M * G == 0), every output equal to the plain
+    version's."""
+    before = kernels.LAUNCHES["combine_compat"]
+    out = kernels.combine_compat(template, group, allow)
+    torch.cuda.synchronize()
+    pairs = template.mask.shape[0] * group.mask.shape[0]
+    assert kernels.LAUNCHES["combine_compat"] == before + (pairs > 0)
+    assert_same(out, kernels.combine_compat_plain(template, group, allow))
+    return out
+
+
+@pytest.mark.parametrize("K", [1, 9, 33])
+@pytest.mark.parametrize("W", [1, 3, 4, 8, 64, 65])
+def test_combine_compat_matches_plain_at_the_key_and_word_edges(K, W):
+    """Keys around a warp and words per key around a 16-byte vector and
+    past 32 lanes (a lane loops over several words of its key)."""
+    rng = np.random.default_rng(K * 100 + W)
+    out = assert_combine_matches_plain(*combine_case(rng, 3, 43, K, W))
+    assert out[1].any() and not out[1].all()
+
+
+@pytest.mark.parametrize("M,G", [(1, 0), (1, 1), (1, 8), (1, 32), (3, 43),
+                                 (2, 1000)])
+@pytest.mark.parametrize("W", [8, 64])
+def test_combine_compat_matches_plain_at_the_pair_edges(M, G, W):
+    """No pair (no launch), one, the disruption encodes' 8, a mesh slot's
+    32, 129, and 2,000: more blocks than one wave on the card."""
+    rng = np.random.default_rng(M * G + W)
+    assert_combine_matches_plain(*combine_case(rng, M, G, 9, W))
+
+
+def test_combine_compat_matches_plain_on_unaligned_rows():
+    """Masks that start 4 bytes past a 16-byte boundary take word loads
+    instead of 16-byte ones."""
+    rng = np.random.default_rng(12)
+    template, group, allow = combine_case(rng, 2, 37, 9, 64)
+    flat = torch.empty(group.mask.numel() + 1, dtype=torch.int32,
+                       device="cuda")
+    shifted = flat[1:].view(group.mask.shape)
+    shifted.copy_(group.mask)
+    group = group._replace(mask=shifted)
+    assert group.mask.data_ptr() % 16 == 4
+    assert_combine_matches_plain(template, group, allow)
+
+
 @pytest.mark.parametrize("Z", [4, 12, 40])
 def test_catalog_feasibility_matches_plain(Z):
     rng = np.random.default_rng(Z)
@@ -162,6 +216,46 @@ def test_offering_compat_matches_plain(W):
     out = kernels.offering_compat(*args)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["offering_compat"] == before + 1
+    assert_same((out,), (feas.offering_compat(*args),))
+    assert out.any() and not out.all()
+
+
+@pytest.mark.parametrize("B,T,O", [(1, 1, 1), (5, 129, 3), (33, 300, 8),
+                                   (4, 128, 1), (120, 2000, 8), (7, 77, 11),
+                                   (3, 127, 12)])
+@pytest.mark.parametrize("W", [2, 64])
+def test_offering_compat_matches_plain_at_the_tile_edges(B, T, O, W):
+    """Rows and types around the 4-row x 128-type tile, O around the
+    8-offering chunk (16-byte reads of a type's offerings when O % 4 == 0),
+    value indices from -1 to past 32 * W."""
+    rng = np.random.default_rng(B * T + O * W)
+    K = 4
+    mask = i32(rng.integers(-2**31, 2**31, (B, K, W)))
+    vals = lambda: i32(rng.integers(-1, 32 * W + 40, (T, O)))  # noqa: E731
+    args = (mask, 1, 3, vals(), vals(), flags(rng, (T, O), 0.5))
+    out = kernels.offering_compat(*args)
+    torch.cuda.synchronize()
+    assert_same((out,), (feas.offering_compat(*args),))
+
+
+def test_offering_compat_matches_plain_on_unaligned_inputs():
+    """Offerings and masks that start 4 bytes past a 16-byte boundary take
+    word copies instead of 16-byte ones."""
+    rng = np.random.default_rng(13)
+    B, K, W, T, O = 21, 3, 8, 200, 4
+
+    def shifted(a):
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
+        out = flat[1:].view(a.shape)
+        out.copy_(a)
+        assert out.data_ptr() % 16 == 4
+        return out
+    def vals():
+        return shifted(i32(rng.integers(-1, 32 * W + 9, (T, O))))
+    mask = shifted(i32(rng.integers(-2**31, 2**31, (B, K, W))))
+    args = (mask, 0, 2, vals(), vals(), flags(rng, (T, O), 0.6))
+    out = kernels.offering_compat(*args)
+    torch.cuda.synchronize()
     assert_same((out,), (feas.offering_compat(*args),))
     assert out.any() and not out.all()
 
