@@ -46,7 +46,24 @@ once more on the inputs of a 4x2 mesh slot (32 groups), and K1-K3 at the
 disruption encode's shapes (G padded to 8, W = 8), held against their plain
 versions there too. The register tile of each K2 / K3 launch of the paths,
 and the geometry of each K1 launch, are printed by path and shape
-(``join_plans``).
+(``join_plans``). The redesigned fits_matrix (B5a) is held at its edge
+shapes too (``fits_matrix``: B of 1, 7, 120, 121 and 4,096, A of 1 and
+8,192, R of 1, 4 and 9; zero, negative, INT_MIN and INT_MAX requests).
+
+After the paths, the port's observability on the card:
+
+- ``device_attribution``: the cold solve and the solve with nodes traced
+  and untraced (equal digests and launches), obs.device.DEVICE_TIME's
+  entries, each peak held within 2x of the allocator's growth over a first
+  launch;
+- ``profile_provisioner_pass``: one north-star Provisioner pass with
+  ``profile_dir`` under build/, its Chrome trace naming K1 and K2, its
+  decisions equal to the unprofiled pass's;
+- ``flight_recorder``: a FlightRecorder on the north-star Provisioner passes
+  and on DisruptionController passes over 5,000 nodes (each record's
+  decision equal to its pass's, the capture's cost, the JSONL bytes), and
+  every disruption record and one 4,992-pod provisioning record replayed on
+  the card to a match.
 
 Each phase prints JSON lines. The line before last is the kernel table; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -734,16 +751,11 @@ def _alone(name: str, inputs, kw: dict, bound_ms: float, flush) -> dict:
             "cold_share": bound_ms / cold}
 
 
-def k1_ops(M: int, G: int, K: int, W: int) -> int:
-    """K1's integer operations: an AND and an OR per mask word of a pair,
-    about twelve per key of a pair for its flags, bounds and verdict."""
-    return 2 * M * G * K * W + 12 * M * G * K
-
-
-def hold(name: str, inputs, kw: dict, ops: int, flush, shape: dict,
+def hold(name: str, inputs, kw: dict, cost, flush, shape: dict,
          plan=None) -> dict:
     """One kernel on prepared CUDA inputs: held equal to its plain version,
-    the wrapper's and the kernel's own times, the bound and its share."""
+    the wrapper's and the kernel's own times, the bound of ``cost`` (the
+    kernel's kernels.*_cost) and its share."""
     import torch
     from karpenter_tpu_torch.ops import kernels
     wrapper = getattr(kernels, name)
@@ -753,14 +765,15 @@ def hold(name: str, inputs, kw: dict, ops: int, flush, shape: dict,
     equal, err = _compare(got, want)
     assert equal, f"{name} at {shape}: kernel and plain version disagree " \
                   f"(max abs err {err})"
-    moved = _nbytes(*inputs) + _nbytes(got)
-    bound_ms, bound_by = _bound(moved, ops)
+    assert cost.bytes == _nbytes(*inputs) + _nbytes(got), \
+        f"{name}: its cost does not count the bytes it moves"
+    bound_ms, bound_by = _bound(cost.bytes, cost.ops)
     rec = {"shape": shape, "equal": equal, "max_abs_err": err,
            "ms": _time_ms(lambda: wrapper(*inputs, **kw)),
            "plain_ms": _time_ms(lambda: plain(*inputs, **kw)),
            **_alone(name, inputs, kw, bound_ms, flush),
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
-           "ops": ops}
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": cost.bytes,
+           "ops": cost.ops}
     if plan is not None:
         rec["plan"] = plan._asdict()
     return rec
@@ -789,16 +802,18 @@ def join_holds(problem, dev, flush) -> dict:
     k3_in = (group, group_req, exist, exist_avail, tol_exist)
     return {
         "combine_compat": hold(
-            "combine_compat", k1_in, {}, k1_ops(M, G, K, W), flush, shape,
+            "combine_compat", k1_in, {}, kernels.combine_compat_cost(
+                M, G, K, W), flush, shape,
             kernels.combine_plan(M, G, K, W)),
         "catalog_feasibility": hold(
             "catalog_feasibility", k2_in, kw,
-            MG * T * (2 * K * W + 8 * K + 3 * R + 2 * O * Z), flush, shape,
+            kernels.catalog_feasibility_cost(M, G, T, K, W, R, O, Z), flush,
+            shape,
             kernels.join_plan("catalog_feasibility", T, MG, K, W, R=R, O=O,
                               Wz=kernels.zone_pack_layout(Z)[1], Z=Z)),
         "exist_feasibility": hold(
             "exist_feasibility", k3_in, {},
-            G * N * (2 * K * W + 9 * K + 2 * R), flush, shape,
+            kernels.exist_feasibility_cost(G, N, K, W, R), flush, shape,
             kernels.join_plan("exist_feasibility", N, G, K, W, R=R)),
     }
 
@@ -969,15 +984,19 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def provisioner_passes(device):
-    """The north-star pending batch (bench_pods over construct_catalog(
-    N_ITS)) through Provisioner.reconcile on a live cluster: a cold pass,
-    then a warm pass after a rollout deployment arrives, packed against the
-    first pass's claims (in flight, so existing nodes of the solve). Each
-    pass is one reconcile after the batcher window has passed, timed on
-    the host clock ending in a device synchronize. Returns one record per
-    pass: seconds, claims created, pod errors, existing nodes used, the
-    decision digest, ps.last and the trace."""
+def provisioner_passes(device, n_pods: int = N_PODS,
+                       n_deploys: int = N_DEPLOYS, passes: int = 2,
+                       profile_dir=None, flight_recorder=None):
+    """The north-star pending batch (bench_pods(n_pods, n_deploys) over
+    construct_catalog(N_ITS)) through Provisioner.reconcile on a live
+    cluster: a cold pass, then (``passes`` = 2) a warm pass after a rollout
+    deployment arrives, packed against the first pass's claims (in flight,
+    so existing nodes of the solve). Each pass is one reconcile after the
+    batcher window has passed, timed on the host clock ending in a device
+    synchronize; the provisioner profiles each pass into ``profile_dir``
+    and captures each solve into ``flight_recorder`` when given. Returns
+    one record per pass: seconds, claims created, pod errors, existing
+    nodes used, the decision digest, ps.last and the trace."""
     from karpenter_tpu_torch.api.nodeclaim import NodeClaim
     from karpenter_tpu_torch.api.objects import Pod
     from karpenter_tpu_torch.cloudprovider.kwok import construct_catalog
@@ -986,12 +1005,14 @@ def provisioner_passes(device):
     from karpenter_tpu_torch.provisioning.provisioner import \
         BATCH_IDLE_SECONDS
     env = live_cluster(construct_catalog(N_ITS), device)
-    pods = bench_pods()
+    env.provisioner.profile_dir = profile_dir
+    env.provisioner.flight_recorder = flight_recorder
+    pods = bench_pods(n_pods, n_deploys)
     for p in pods:
         env.store.create(p)
     out = []
-    for i, arriving in enumerate(([], rollout_deployment(
-            1, N_PODS // N_DEPLOYS))):
+    arrivals = ([], rollout_deployment(1, n_pods // n_deploys))[:passes]
+    for i, arriving in enumerate(arrivals):
         for p in arriving:
             env.store.create(p)
         env.provisioner.reconcile()         # opens the batcher window
@@ -1121,12 +1142,249 @@ def encoding_shapes(env, candidates) -> dict:
             "N": enc.tensors.exist_ok.shape[1]}
 
 
-def new_controller(env):
+def new_controller(env, flight_recorder=None):
     from karpenter_tpu_torch.disruption.controller import (
         DisruptionController, OrchestrationQueue)
     return DisruptionController(
         env.store, env.cluster, env.provisioner,
-        OrchestrationQueue(env.store, env.cluster, env.clock), env.clock)
+        OrchestrationQueue(env.store, env.cluster, env.clock), env.clock,
+        flight_recorder=flight_recorder)
+
+
+# --------------------------------------------------------------------------
+# B5a at its edge shapes; device attribution, the profiler and the flight
+# recorder on the card
+# --------------------------------------------------------------------------
+
+#: B5a's edge shapes: B around the store widths and a request tile of
+#: 4,096 rows, A of one row and of the padded node axis, R of 1, 4 (the
+#: int4 path) and 9
+FITS_EDGES = [(A, B, R) for A in (1, 8192) for B in (1, 7, 120, 121, 4096)
+              for R in (1, 4, 9)]
+#: the provisioning record replayed on the card: a 4,992-pod batch (12
+#: deployments x 416 pods of the benchmark mix) against the 2,000-type
+#: catalog. The host oracle's greedy, which a replay runs beside the tensor
+#: path, takes minutes at that size already and grows with the batch, so
+#: the 49,920-pod records are held by their digests and not replayed
+REPLAY_PODS, REPLAY_DEPLOYS = 4_992, 12
+
+
+def fits_matrix_edges(dev) -> list:
+    """B5a held against its plain version at every edge shape, on requests
+    with zero, negative, INT_MIN and INT_MAX entries (every fifth, seventh
+    and eleventh word) and avail rows with INT_MAX and INT_MIN entries."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch.ops import feasibility as feas, kernels
+    i32_min, i32_max = -2**31, 2**31 - 1
+    out = []
+    for A, B, R in FITS_EDGES:
+        rng = np.random.default_rng(A + B + R)
+        req = rng.integers(-5, 60, (B, R)).astype(np.int64)
+        flat = req.reshape(-1)
+        flat[::5], flat[1::7], flat[2::11] = 0, i32_min, i32_max
+        avail = rng.integers(-5, 80, (A, R)).astype(np.int64)
+        avail.reshape(-1)[::13] = i32_max
+        avail.reshape(-1)[3::17] = i32_min
+        req_d = torch.from_numpy(req.astype(np.int32)).to(dev)
+        avail_d = torch.from_numpy(avail.astype(np.int32)).to(dev)
+        got = kernels.fits_matrix(req_d, avail_d)
+        want = feas.fits_matrix(req_d, avail_d)
+        torch.cuda.synchronize()
+        equal, err = _compare(got, want)
+        assert equal, f"fits_matrix at A={A} B={B} R={R}: kernel and " \
+                      f"plain version disagree (max abs err {err})"
+        plan = kernels.fits_plan(A, B, R,
+                                 aligned=avail_d.data_ptr() % 16 == 0)
+        out.append({"A": A, "B": B, "R": R, "width": plan.width,
+                    "vec4": plan.vec4, "tile_b": plan.tile_b,
+                    "grid": [plan.grid_a, plan.grid_b], "equal": equal,
+                    "fits": int(got.sum())})
+    return out
+
+
+def device_attribution(ts_mod, pool, catalog, pods, nodes, problems) -> dict:
+    """obs.device.DEVICE_TIME on the card: the cold solve and the solve
+    with nodes, each once with the tracer off and once with it on (equal
+    digests and launches), then a first launch of each problem (nothing
+    cached on the device) inside a reset of the allocator's peak: every
+    entry has dispatches, device time and a peak within 2x of the
+    allocator's growth."""
+    import dataclasses
+    import torch
+    from karpenter_tpu_torch.flightrec.record import decision_digest
+    from karpenter_tpu_torch.obs.device import DEVICE_TIME
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    from karpenter_tpu_torch.ops import binpack, kernels
+    DEVICE_TIME.clear()
+    solves = {}
+    for label, state in (("cold", ()), ("existing_nodes", nodes)):
+        runs = {}
+        for traced in (False, True):
+            saved, TRACER.enabled = TRACER.enabled, traced
+            kernels.reset_launches()
+            try:
+                _, r, s = _solve(ts_mod, pool, catalog, pods, state, DEVICE)
+            finally:
+                TRACER.enabled = saved
+            runs[traced] = (decision_digest(r, pods, "", (len(pods), 0)),
+                            dict(kernels.LAUNCHES), s)
+        assert runs[True][0] == runs[False][0], \
+            f"{label}: the traced solve's decisions differ"
+        assert runs[True][1] == runs[False][1], \
+            f"{label}: the traced solve's launches differ"
+        solves[label] = {"s_traced": runs[True][2],
+                         "s_untraced": runs[False][2],
+                         "launches": {k: v for k, v in runs[True][1].items()
+                                      if v}}
+    snap = DEVICE_TIME.snapshot()
+    assert len(snap) == 2, snap
+    growth = {}
+    for problem in problems:
+        before = {e["executable"]: e["dispatches"]
+                  for e in DEVICE_TIME.snapshot()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        binpack.precompute(dataclasses.replace(problem, device_cache=None),
+                           DEVICE)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - base
+        (label,) = [e["executable"] for e in DEVICE_TIME.snapshot()
+                    if e["dispatches"] != before.get(e["executable"])]
+        growth[label] = grew
+    entries = DEVICE_TIME.snapshot()
+    for e in entries:
+        assert e["dispatches"] >= 1 and e["device_seconds"] > 0, e
+        ratio = e["peak_bytes"] / growth[e["executable"]]
+        assert 0.5 <= ratio <= 2.0, (e, growth)
+        e["allocator_growth_bytes"] = growth[e["executable"]]
+        e["peak_over_growth"] = ratio
+    return {"solves": solves, "device_time": entries,
+            "watermarks": DEVICE_TIME.watermarks()}
+
+
+def profiled_pass(device, unprofiled: dict) -> dict:
+    """One Provisioner.reconcile of the north-star batch with profile_dir
+    under build/ (gitignored): its Chrome trace names K1 and K2, the
+    PROFILE_ACTIVE gauge reads 0 after, and its decisions equal the
+    unprofiled pass's (``unprofiled``, provisioner_passes' first)."""
+    import shutil
+    from karpenter_tpu_torch.metrics.registry import PROFILE_ACTIVE
+    from karpenter_tpu_torch.obs.profile import PROFILER
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profile")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    (p,) = provisioner_passes(device, passes=1, profile_dir=out_dir)
+    assert p["digest"] == unprofiled["digest"], \
+        "the profiled pass's decisions differ from the unprofiled pass's"
+    files = os.listdir(out_dir)
+    assert len(files) == 1, files
+    path = os.path.join(out_dir, files[0])
+    with open(path) as f:
+        text = f.read()
+    named = {name: text.count(f"{name}_kernel") for name in FEASIBILITY}
+    assert named["combine_compat"] and named["catalog_feasibility"], \
+        (named, {cat: text.count(f'"cat": "{cat}"')
+                 for cat in ("kernel", "gpu_memcpy", "cuda_runtime",
+                             "cpu_op")})
+    assert PROFILE_ACTIVE.value() == 0.0 and not PROFILER.active
+    return {"s": p["s"], "unprofiled_s": unprofiled["s"],
+            "trace": os.path.relpath(path), "trace_bytes": len(text),
+            "kernel_name_hits": named}
+
+
+def timed_recorder():
+    """A FlightRecorder whose captures are timed (``capture_seconds``)."""
+    from karpenter_tpu_torch.flightrec import FlightRecorder
+    rec = FlightRecorder(capacity=64)
+    rec.capture_seconds = []
+    for name in ("capture_provisioning", "capture_disruption"):
+        def timed(*a, _inner=getattr(rec, name), **kw):
+            t0 = time.perf_counter()
+            _inner(*a, **kw)
+            rec.capture_seconds.append(time.perf_counter() - t0)
+        setattr(rec, name, timed)
+    return rec
+
+
+def _dumped(rec) -> tuple:
+    """(JSONL lines, seconds to materialize and encode them)."""
+    t0 = time.perf_counter()
+    lines = rec.lines()
+    return lines, time.perf_counter() - t0
+
+
+def _replayed(line: str, index: int, device) -> dict:
+    from karpenter_tpu_torch.flightrec import loads_record, replay_record
+    t0 = time.perf_counter()
+    report = replay_record(loads_record(line), index, device=device)
+    s = time.perf_counter() - t0
+    assert report.deterministic is True and report.parity is True, \
+        report.render()
+    return {"index": index, "kind": report.kind, "s": s, "match": True,
+            "notes": report.notes}
+
+
+def flight_recorder_phase(device) -> dict:
+    """A FlightRecorder on the north-star Provisioner passes and on the
+    DisruptionController passes over 5,000 nodes: every record's decision
+    equals its pass's, the capture's seconds beside the pass's, the JSONL
+    bytes; every disruption record and one provisioning record (a
+    REPLAY_PODS batch) replayed on the card through replay_record."""
+    from karpenter_tpu_torch.flightrec import FlightRecorder
+    rec = timed_recorder()
+    passes = provisioner_passes(device, flight_recorder=rec)
+    records = rec.records()
+    assert len(records) == len(passes), len(records)
+    lines, dump_s = _dumped(rec)
+    prov = []
+    for p, r, cap in zip(passes, records, rec.capture_seconds, strict=True):
+        assert r.decision == p["digest"], \
+            f"provisioner pass {p['pass']}: the record's decision differs"
+        prov.append({"pass": p["pass"], "s": p["s"], "capture_s": cap,
+                     "capture_share": cap / p["s"], "elapsed": r.elapsed,
+                     "claims": r.meta["claims"]})
+    prov_bytes = sum(len(line) + 1 for line in lines)
+
+    rec_d = timed_recorder()
+    env = stuck_fleet(device, prefix="frec")
+    ctrl = new_controller(env, flight_recorder=rec_d)
+    dis = []
+    for i in range(1 + WINDOW_REPEATS):
+        s, cmd_d = controller_pass(ctrl)
+        r = rec_d.records()[-1]
+        assert len(rec_d) == i + 1 and r.kind == "disruption"
+        assert (r.meta["command"]["decision"],
+                r.meta["command"]["candidates"]) == cmd_d[:2], \
+            f"controller pass {i}: the record's command differs"
+        dis.append({"pass": i, "s": s, "capture_s": rec_d.capture_seconds[i],
+                    "capture_share": rec_d.capture_seconds[i] / s,
+                    "decision": cmd_d[0], "chosen": cmd_d[1]})
+    lines_d, dump_d_s = _dumped(rec_d)
+    del env, ctrl
+    replays = [_replayed(line, i, device) for i, line in enumerate(lines_d)]
+
+    rec_s = FlightRecorder()
+    (small,) = provisioner_passes(device, REPLAY_PODS, REPLAY_DEPLOYS,
+                                  passes=1, flight_recorder=rec_s)
+    line = rec_s.lines()[-1]
+    assert rec_s.records()[-1].decision == small["digest"]
+    replays.append({**_replayed(line, 0, device), "pods": REPLAY_PODS,
+                    "pass_s": small["s"]})
+    return {"provisioner": {"passes": prov, "dump_s": dump_s,
+                            "jsonl_bytes": prov_bytes},
+            "disruption_controller": {
+                "nodes": N_NODES, "passes": dis, "dump_s": dump_d_s,
+                "jsonl_bytes": sum(len(x) + 1 for x in lines_d)},
+            "replays": replays,
+            "replayed_provisioning_record": {
+                "pods": REPLAY_PODS, "deployments": REPLAY_DEPLOYS,
+                "instance_types": N_ITS,
+                "why": "the host oracle a replay runs beside the tensor "
+                       "path takes minutes at 4,992 pods and grows with "
+                       "the batch: the 49,920-pod records are held by "
+                       "their digests"}}
 
 
 def main() -> None:
@@ -1242,30 +1500,24 @@ def main() -> None:
     examined = int(torch.where(admitted.any(-1),
                                admitted.int().argmax(-1) + 1, O).sum())
     MG = M * G
+    # each kernel's work (ops/kernels.py *_cost: the operations its bound
+    # counts, each input read once and each output written once)
     checks = {
         "combine_compat": dict(
             fns=(k1, k1p), replaces="karpenter_tpu/ops/binpack.py:160",
-            bytes_in=_nbytes(template, group, allow_undef),
-            ops=k1_ops(M, G, K, W)),
+            cost=kernels.combine_compat_cost(M, G, K, W)),
         "catalog_feasibility": dict(
             fns=(k2, k2p), replaces="karpenter_tpu/ops/binpack.py:160",
-            bytes_in=_nbytes(*k2_in),
-            ops=MG * T * (2 * K * W + 8 * K + 3 * R + 2 * O * Z)),
+            cost=kernels.catalog_feasibility_cost(M, G, T, K, W, R, O, Z)),
         "exist_feasibility": dict(
             fns=(k3, k3p), replaces="karpenter_tpu/ops/binpack.py:616",
-            bytes_in=_nbytes(*k3_in),
-            ops=G * N * (2 * K * W + 9 * K + 2 * R)),
-        # two compares, an OR and an AND per (node, group, resource)
+            cost=kernels.exist_feasibility_cost(G, N, K, W, R)),
         "fits_matrix": dict(
             fns=(b5a, b5ap), replaces="karpenter_tpu/ops/feasibility.py:120",
-            bytes_in=_nbytes(*b5a_in), ops=4 * N * G * R),
-        # the zone and capacity-type rows of the masks are all it must read;
-        # about twelve integer operations per offering examined
+            cost=kernels.fits_matrix_cost(N, G, R)),
         "offering_compat": dict(
             fns=(b5b, b5bp), replaces="karpenter_tpu/ops/feasibility.py:129",
-            bytes_in=2 * G * W * 4 + _nbytes(off_zone, off_captype,
-                                             off_avail),
-            ops=12 * examined),
+            cost=kernels.offering_compat_cost(G, T, W, O, examined)),
     }
     rows = {}
     for name, c in checks.items():
@@ -1281,7 +1533,7 @@ def main() -> None:
             # some of its inputs from a right one
             assert out_k.any() and not out_k.all(), \
                 f"{name}: the inputs give an output of one value"
-        bound_ms, bound_by = _bound(c["bytes_in"] + _nbytes(out_k), c["ops"])
+        bound_ms, bound_by = _bound(c["cost"].bytes, c["cost"].ops)
         rows[name] = {
             "name": name, "route": "cuda",
             "source": f"karpenter_tpu_torch/ops/csrc/{name}.cu",
@@ -1289,7 +1541,7 @@ def main() -> None:
             "max_abs_err": err, "equal": equal,
             "ms": _time_ms(kern), "plain_ms": _time_ms(plain),
             "device_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": c["bytes_in"] + _nbytes(out_k), "ops": c["ops"],
+            "bytes": c["cost"].bytes, "ops": c["cost"].ops,
             "library_ms": None}
     for name in ("fits_matrix", "offering_compat"):
         rows[name]["device_ms"] = _device_ms(
@@ -1336,8 +1588,8 @@ def main() -> None:
                   f"err {err})"
     staged = kernels.stage_rows(blocks, dev)
     dev_blocks = [b.to(dev) for b in blocks]
-    span_bytes = _nbytes(*blocks)
-    bound_ms, bound_by = _bound(2 * span_bytes, 0)
+    splice = kernels.row_splice_cost(_nbytes(*blocks))
+    bound_ms, bound_by = _bound(splice.bytes, splice.ops)
 
     def library():
         for buf, b in zip(bufs_p, dev_blocks):
@@ -1356,13 +1608,25 @@ def main() -> None:
             lambda: kernels.row_splice_plain(bufs_p, blocks, span[0])),
         "device_ms": _device_ms(prof, "row_splice"),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "bytes": 2 * span_bytes, "ops": 0, "rows": span[1] - span[0],
+        "bytes": splice.bytes, "ops": splice.ops, "rows": span[1] - span[0],
         "library_ms": _time_ms(library)}
     _emit({"phase": "kernels_vs_plain", "kernels": [
         {"name": r["name"], "replaces": r["replaces"],
          "ms": r["ms"], "kernel_ms": r.get("kernel_ms"),
          "cold_ms": r.get("cold_ms"), "plain_ms": r["plain_ms"],
          "equal": r["equal"]} for r in rows.values()]})
+
+    # B5a, redesigned: held at every edge shape; its plan and numbers at the
+    # solve's shape (the groups' requests against the padded node rows)
+    fm = rows["fits_matrix"]
+    fm["plan"] = kernels.fits_plan(
+        N, G, R, aligned=exist_avail.data_ptr() % 16 == 0)._asdict()
+    _emit({"phase": "fits_matrix",
+           "solve_shape": {"A": N, "B": G, "R": R, **{
+               k: fm[k] for k in ("plan", "kernel_ms", "cold_ms", "ms",
+                                  "device_ms", "bound_ms", "bound_by",
+                                  "share", "cold_share")}},
+           "edges": fits_matrix_edges(dev)})
 
     # 4 + 5. the main path: cold solve, then against existing nodes. Each
     # path below zeroes the launch counts just before it and reads them
@@ -1466,7 +1730,7 @@ def main() -> None:
     # device time per launch in the profiled 4x2 solve
     sM, sG, sK, sW = slot_key
     slot = hold("combine_compat", slot_in, {},
-                k1_ops(sM, sG, sK, sW), flush,
+                kernels.combine_compat_cost(sM, sG, sK, sW), flush,
                 {"M": sM, "G": sG, "K": sK, "W": sW},
                 kernels.combine_plan(sM, sG, sK, sW))
     slot["device_ms"] = _device_ms(prof, "combine_compat")
@@ -1696,7 +1960,20 @@ def main() -> None:
             f"{name} was never launched on the main path"
         rows[name]["launches"] = n
 
-    # 16. the kernel table and the verdict
+    # 16. device-time attribution (obs.device.DEVICE_TIME) of the cold
+    # solve and the solve with nodes, traced and not
+    _emit({"phase": "device_attribution", **device_attribution(
+        ts_mod, pool, catalog, pods, nodes, (problem, problem_x))})
+
+    # 17. one north-star Provisioner pass under the profiler
+    _emit({"phase": "profile_provisioner_pass",
+           **profiled_pass(DEVICE, gpu_passes[0])})
+
+    # 18. the flight recorder on the provisioner and disruption passes, and
+    # replays of its records on the card
+    _emit({"phase": "flight_recorder", **flight_recorder_phase(DEVICE)})
+
+    # 19. the kernel table and the verdict
     _emit({"kernels": list(rows.values())})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

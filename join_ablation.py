@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of K2 (catalog_feasibility) and K3 (exist_feasibility)
-goes on the card, and what their tile plan (kernels.join_plan) picks. Run
-from the repo root on a machine with a CUDA card:
+"""Where the time of K2 (catalog_feasibility), K3 (exist_feasibility) and
+B5a (fits_matrix) goes on the card, and what the K2 / K3 tile plan
+(kernels.join_plan) picks. Run from the repo root on a machine with a CUDA
+card:
 
     python3 join_ablation.py variants
     python3 join_ablation.py plans SMOKE_OUTPUT
+    python3 join_ablation.py fits
 
 ``variants`` times each kernel on the north-star inputs of chip_smoke.py
 (49,920 pods x 2,000 types, 5,000 nodes) for the sources as they are and
@@ -14,6 +16,10 @@ kernels for its own measurement. A variant's outputs are wrong by
 construction, so only the sources' outputs are held to the plain versions;
 a variant keeps the join's result live (the outputs still depend on it),
 so the compiler cannot drop the ANDs it leaves in.
+
+``fits`` does the same for fits_matrix at chip_smoke.py's solve shape (the
+120 groups' requests against the 8,192 padded node rows, R = 4), with the
+FITS_VARIANTS edits of csrc/fits_matrix.cu.
 
 ``plans`` reads the ``join_plans`` line of a chip_smoke.py run's output
 (the shape and plan of every K2 / K3 launch of its paths) and, at each
@@ -87,6 +93,33 @@ VARIANTS = {
         ("exist_feasibility.cu",
          "for (int r = 0; r < R; ++r) {\n    int32_t avail[RA];",
          "for (int r = 0; r < (R & 0); ++r) {\n    int32_t avail[RA];")],
+}
+
+
+#: fits_matrix variants: the launch and nothing else; without the staging of
+#: the requests (the tests read whatever shared memory holds); without the
+#: avail loads (a constant row); without either
+FITS_LAUNCH_ONLY = [("fits_matrix.cu", "  const int b0 = blockIdx.y * tile_b;",
+                     "  if (R >= 0) return;\n"
+                     "  const int b0 = blockIdx.y * tile_b;")]
+FITS_NO_STAGING = [("fits_matrix.cu",
+                    "    sreq[(col / V) * stride + (col % V) * R"
+                    " + (w - col * R)] =\n        q <= 0 ? INT32_MIN : q;"
+                    "\n  }\n  __syncthreads();",
+                    "  }")]
+FITS_NO_AVAIL = [
+    ("fits_matrix.cu",
+     "    av4 = __ldg(avail4 + a0 + threadIdx.x / runs);",
+     "    av4 = make_int4(a0, 1, 2, 3);"),
+    ("fits_matrix.cu",
+     "        av4 = __ldg(avail4 + a0 + (i + FM_THREADS) / runs);",
+     "        av4 = make_int4(i, 1, 2, 3);")]
+FITS_VARIANTS = {
+    "sources": [],
+    "launch only": FITS_LAUNCH_ONLY,
+    "no staging": FITS_NO_STAGING,
+    "no avail loads": FITS_NO_AVAIL,
+    "no staging, no avail loads": FITS_NO_STAGING + FITS_NO_AVAIL,
 }
 
 
@@ -188,7 +221,10 @@ def _held_ms(name, inputs, kw):
     launch, outs = kernels.launcher(name, *inputs, **kw)
     launch()
     torch.cuda.synchronize()
-    want = getattr(kernels, f"{name}_plain")(*inputs, **kw)
+    # B5's plain versions are the feasibility module's own functions
+    plain = getattr(kernels, f"{name}_plain", None) or getattr(kernels.feas,
+                                                              name)
+    want = plain(*inputs, **kw)
     assert all(torch.equal(a, b) for a, b in zip(outs, want)), \
         f"{name}: kernel and plain version disagree"
     times = [cs._kernel_ms(launch) for _ in range(3)]
@@ -235,12 +271,14 @@ def plans(smoke_output: str, dev) -> None:
         print(json.dumps(row), flush=True)
 
 
-def variants(dev) -> None:
+def _variant_times(variants: dict, cases: dict) -> None:
+    """One JSON line per variant: each case's kernel_ms on a build of the
+    sources with the variant's edits (the sources' own launch held equal to
+    the plain version first)."""
     from karpenter_tpu_torch.ops import kernels
-    cases = north_star(dev)
     sources = kernels.CSRC
     try:
-        for variant, edits in VARIANTS.items():
+        for variant, edits in variants.items():
             csrc = kernels.BUILD_DIR / "ablation" / variant.replace(" ", "_")
             shutil.rmtree(csrc, ignore_errors=True)
             shutil.copytree(sources, csrc)
@@ -261,11 +299,24 @@ def variants(dev) -> None:
         kernels.CSRC, kernels._LIB = sources, None
 
 
+def variants(dev) -> None:
+    _variant_times(VARIANTS, north_star(dev))
+
+
+def fits(dev) -> None:
+    """fits_matrix at chip_smoke.py's solve shape: the groups' requests
+    against the padded node rows of the solve with nodes."""
+    _, group_req, _, exist_avail, _ = north_star(dev)[
+        "exist_feasibility"][0]
+    _variant_times(FITS_VARIANTS,
+                   {"fits_matrix": ((group_req, exist_avail), {})})
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("join_ablation: CUDA is not available")
-    if sys.argv[1:2] not in (["variants"], ["plans"]) \
+    if sys.argv[1:2] not in (["variants"], ["plans"], ["fits"]) \
             or len(sys.argv) != 2 + (sys.argv[1] == "plans"):
         sys.exit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -274,6 +325,8 @@ def main() -> None:
     dev = torch.device("cuda")
     if sys.argv[1] == "plans":
         plans(sys.argv[2], dev)
+    elif sys.argv[1] == "fits":
+        fits(dev)
     else:
         variants(dev)
 

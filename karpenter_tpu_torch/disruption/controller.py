@@ -154,10 +154,9 @@ class DisruptionController(SingletonController):
                  flight_recorder=None):
         from ..events.recorder import Recorder
         self.store = store
-        # the flight recorder is not carried: a recorder is refused
-        if flight_recorder is not None:
-            raise NotImplementedError(
-                "DisruptionController: the flight recorder is not ported")
+        # optional flightrec.FlightRecorder: every non-empty disruption
+        # command is captured with its winner-simulation inputs for replay
+        self.flight_recorder = flight_recorder
         self.cluster = cluster
         self.provisioner = provisioner
         self.queue = queue
@@ -298,6 +297,12 @@ class DisruptionController(SingletonController):
         # the pass trace_id rides the command so the execute-time log line
         # (possibly a TTL validation later) can still join the trace
         cmd.trace_id = TRACER.current_trace_id()
+        if self.flight_recorder is not None:
+            # capture at decision time (before the TTL validation pass): the
+            # record must hold the inputs the decision was COMPUTED from
+            self.flight_recorder.capture_disruption(
+                snapshot, method, budgets, candidates, cmd, results,
+                self.clock.now() - started)
         # graceful methods revalidate after the consolidation TTL; eventual
         # (drift) executes immediately (drift.go has no validation pass)
         if method.disruption_class == "graceful":

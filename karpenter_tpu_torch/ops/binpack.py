@@ -377,19 +377,67 @@ def _output_layout(p: PackProblem, has_exist: bool):
     ]
 
 
-def _run_precompute(args, statics, device: torch.device) -> np.ndarray:
+def launch_shape(p: PackProblem, has_exist: bool) -> dict:
+    """The shapes that pick one precompute launch's plans: G, M, T, N (0
+    without existing nodes), K, W, R, O, Z."""
+    G, K, W = p.group_enc.mask.shape
+    return dict(G=G, M=p.template_enc.mask.shape[0],
+                T=p.it_enc.mask.shape[0],
+                N=p.exist_avail.shape[0] if has_exist else 0,
+                K=K, W=W, R=p.group_req.shape[1], O=p.off_zone.shape[1],
+                Z=p.zone_values.shape[0])
+
+
+def precompute_cost(G: int, M: int, T: int, N: int, K: int, W: int, R: int,
+                    O: int, Z: int) -> "Tuple[int, int, int]":
+    """(operations, bytes accessed, peak bytes) of one precompute launch:
+    K1 + K2, and K3 when N > 0 (kernels' per-kernel costs). The peak is the
+    launch's device arguments, every output it allocates (K1's combined
+    rows included) and the packed copy the fetch reads."""
+    costs = [kernels.combine_compat_cost(M, G, K, W),
+             kernels.catalog_feasibility_cost(M, G, T, K, W, R, O, Z)]
+    if N:
+        costs.append(kernels.exist_feasibility_cost(G, N, K, W, R))
+    args = sum(kernels.precompute_arg_bytes(G, M, T, N, K, W, R, O,
+                                            Z).values())
+    # without nodes K3 is not launched; two [G, 1] zero outputs stand in
+    k2_k3 = (kernels.catalog_feasibility_outputs(M, G, T, Z)
+             + kernels.exist_feasibility_outputs(G, max(N, 1)))
+    fetched = M * G + k2_k3
+    peak = args + kernels.combine_compat_outputs(M, G, K, W) + k2_k3 + fetched
+    return (sum(c.ops for c in costs), sum(c.bytes for c in costs), peak)
+
+
+def shape_summary(shape: dict) -> str:
+    return ",".join(f"{k}{v}" for k, v in shape.items())
+
+
+def _run_precompute(p: PackProblem, args, statics, device: torch.device
+                    ) -> np.ndarray:
     """Launch the precompute and fetch its packed outputs. With tracing on,
     the launches (device.dispatch) and the wait for the device
-    (device.execute) get spans of their own; with it off the fetch's copy
-    absorbs the device time."""
+    (device.execute) get spans of their own, attributed to the launch
+    shape in obs.device.DEVICE_TIME; with it off the fetch's copy absorbs
+    the device time, and no event or synchronize is added."""
     from ..obs.tracer import TRACER
     if not TRACER.enabled:
         return _pack_outputs(precompute_kernel(*args, **statics)).cpu().numpy()
-    with TRACER.span("device.dispatch"):
+    from ..obs.device import DEVICE_TIME, LaunchTimer, device_label
+    shape = launch_shape(p, statics["has_exist"])
+    key = ("single", device_label(device), statics["zone_key"],
+           statics["captype_key"], *shape.values())
+    st = DEVICE_TIME.get(key)
+    if st is None:
+        st = DEVICE_TIME.register(key, "single", shapes=shape_summary(shape),
+                                  devices=[key[1]],
+                                  cost=precompute_cost(**shape))
+    with TRACER.span("device.dispatch", executable=st.label):
+        timer = LaunchTimer([device])
         flat = _pack_outputs(precompute_kernel(*args, **statics))
-    with TRACER.span("device.execute"):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        dispatch_s = timer.launched()
+    with TRACER.span("device.execute", executable=st.label):
+        device_s = timer.wait()
+    DEVICE_TIME.record(st, dispatch_s, device_s)
     return flat.cpu().numpy()
 
 
@@ -442,7 +490,7 @@ def precompute(p: PackProblem, device=None) -> PackTensors:
         args, statics = device_args(p, ArgPlacer(device))
         # single packed fetch: one device-to-host copy for all six outputs
         with TRACER.span("device.fetch"):
-            flat = _run_precompute(args, statics, device)
+            flat = _run_precompute(p, args, statics, device)
     compat_tm, it_okz_packed, ppn, zone_adm, exist_ok, exist_cap = \
         _split_packed(flat, _output_layout(p, statics["has_exist"]))
     return unpack_tensors(compat_tm, it_okz_packed, ppn, zone_adm,

@@ -58,7 +58,7 @@ _ARGTYPES = {
     "catalog_feasibility": [_VP] * 20 + [_I] * 15 + [_VP] * 4,
     "exist_feasibility": [_VP] * 13 + [_I] * 8 + [_VP] * 3,
     "row_splice": [_VP] * 3 + [_I] + [_VP],
-    "fits_matrix": [_VP] * 2 + [_I] * 3 + [_VP] * 2,
+    "fits_matrix": [_VP] * 2 + [_I] * 7 + [_VP] * 2,
     "offering_compat": [_VP] * 4 + [_I] * 7 + [_VP] * 2,
 }
 
@@ -726,6 +726,40 @@ def _row_splice_args(bufs, staged, start: int):
 # B5a fits_matrix, B5b offering_compat
 # --------------------------------------------------------------------------
 
+#: threads of a fits_matrix block (FM_THREADS) and the shared memory its
+#: staged request tile may take
+FITS_THREADS = 256
+FITS_SMEM_BYTES = 16 * 1024
+#: the store widths (outputs a thread writes with one store), widest first
+FITS_WIDTHS = (16, 8, 4)
+
+
+class FitsPlan(NamedTuple):
+    width: int       # outputs a thread stores at once: 16, 8, 4 or 1
+    vec4: bool       # R == 4 and avail 16-byte aligned: an avail row is an int4
+    tile_b: int      # request rows a block stages (a multiple of width)
+    rows: int        # avail rows a block takes
+    grid_a: int      # blocks along A
+    grid_b: int      # blocks along B (request tiles)
+    smem: int        # the staged tile's shared memory, bytes
+
+
+def fits_plan(A: int, B: int, R: int, *, aligned: bool = True) -> FitsPlan:
+    """The geometry of one fits_matrix launch over A avail rows x B request
+    rows of R resources (csrc/fits_matrix.cu). The store width is the
+    widest of FITS_WIDTHS that divides B (every output row starts at byte
+    a * B), else 1; a block stages as many runs of `width` request rows as
+    FITS_SMEM_BYTES holds (each run's words padded as the kernel pads them)
+    and takes enough avail rows for one run a thread."""
+    width = next((v for v in FITS_WIDTHS if B % v == 0), 1)
+    vec4 = R == 4 and aligned
+    stride = width * R + (4 if vec4 else 1)
+    runs = max(1, min(B // width, FITS_SMEM_BYTES // (4 * stride)))
+    rows = max(1, FITS_THREADS // runs)
+    return FitsPlan(width, vec4, runs * width, rows, -(-A // rows),
+                    -(-B // (runs * width)), runs * stride * 4)
+
+
 def fits_matrix(requests: torch.Tensor, available: torch.Tensor
                 ) -> torch.Tensor:
     """requests int32 [B, R] x available int32 [A, R] -> bool [A, B]: all
@@ -739,14 +773,23 @@ def fits_matrix(requests: torch.Tensor, available: torch.Tensor
 
 
 def _fits_matrix_args(requests: torch.Tensor, available: torch.Tensor):
-    """(device, launch arguments or None, output) of B5a on CUDA inputs."""
+    """(device, launch arguments or None, output) of B5a on CUDA inputs.
+    The kernel indexes in 32 bits: the output and both inputs must hold
+    fewer than 2^31 elements."""
     dev = requests.device
     B, R = requests.shape
     A = available.shape[0]
+    if max(A * B, A * R, B * R) > INT32_MAX:
+        raise ValueError(f"fits_matrix: [{B}, {R}] requests x [{A}, {R}] "
+                         f"avail exceed 32-bit indexing")
     ptrs = [_check("requests", requests, torch.int32, (B, R), dev),
             _check("available", available, torch.int32, (A, R), dev)]
     out = torch.empty((A, B), dtype=torch.bool, device=dev)
-    args = (*ptrs, A, B, R, out.data_ptr()) if A and B else None
+    args = None
+    if A and B:
+        plan = fits_plan(A, B, R, aligned=available.data_ptr() % 16 == 0)
+        args = (*ptrs, A, B, R, plan.width, int(plan.vec4), plan.tile_b,
+                plan.rows, out.data_ptr())
     return dev, args, out
 
 
@@ -793,6 +836,113 @@ def _offering_compat_args(mask_b: torch.Tensor, zone_key: int,
     args = ((*ptrs, B, T, K, W, O, zone_key, captype_key, out.data_ptr())
             if B and T else None)
     return dev, args, out
+
+
+# --------------------------------------------------------------------------
+# the work of one launch: the integer operations its bound counts and the
+# bytes it must move (each input read once, each output written once). The
+# device-time tracker (obs/device.py) and chip_smoke.py's bounds read these
+# --------------------------------------------------------------------------
+
+class Cost(NamedTuple):
+    ops: int         # 32-bit integer operations (acc |= x & y counts two)
+    bytes: int       # inputs read once + outputs written once
+
+
+def enc_bytes(rows: int, K: int, W: int) -> int:
+    """Bytes of an Enc of ``rows`` rows: the int32 mask words, three bool
+    flags and the two int32 bounds of each key."""
+    return rows * K * (4 * W + 3 + 8)
+
+
+def zone_words_bytes(Z: int) -> int:
+    """Bytes of one packed zone bitfield (zone_pack_layout)."""
+    dtype, words = zone_pack_layout(Z)
+    return np.dtype(dtype).itemsize * words
+
+
+def precompute_arg_bytes(G: int = 0, M: int = 0, T: int = 0, N: int = 0,
+                         K: int = 0, W: int = 0, R: int = 0, O: int = 0,
+                         Z: int = 0) -> Dict[str, int]:
+    """Bytes of each device argument of a precompute launch
+    (binpack.device_args), by name: G groups, M templates, T types and N
+    nodes over K keys of W words, R resources, O offerings a type, Z
+    zones. The kernels' costs below and binpack.precompute_cost's peak
+    sum the entries they read."""
+    enc = enc_bytes
+    return dict(group=enc(G, K, W), template=enc(M, K, W), it=enc(T, K, W),
+                group_req=4 * G * R, daemon=4 * M * R, alloc=4 * T * R,
+                template_its=M * T, offerings=9 * T * O, zone_values=4 * Z,
+                allow_undefined=K, tol_template=G * M, exist=enc(N, K, W),
+                exist_avail=4 * N * R, tol_exist=G * N)
+
+
+def combine_compat_outputs(M: int, G: int, K: int, W: int) -> int:
+    """Bytes of K1's outputs: the combined rows and compat_tm."""
+    return enc_bytes(M * G, K, W) + M * G
+
+
+def combine_compat_cost(M: int, G: int, K: int, W: int) -> Cost:
+    """K1: an AND and an OR per mask word of a pair, about twelve
+    operations per key of a pair for its flags, bounds and verdict."""
+    MG = M * G
+    a = precompute_arg_bytes(G=G, M=M, K=K, W=W)
+    return Cost(2 * MG * K * W + 12 * MG * K,
+                a["template"] + a["group"] + a["allow_undefined"]
+                + combine_compat_outputs(M, G, K, W))
+
+
+def catalog_feasibility_outputs(M: int, G: int, T: int, Z: int) -> int:
+    """Bytes of K2's outputs: it_okz packed, ppn (int16), zone_adm."""
+    return G * M * T * (zone_words_bytes(Z) + 2) + G * M * Z
+
+
+def catalog_feasibility_cost(M: int, G: int, T: int, K: int, W: int, R: int,
+                             O: int, Z: int) -> Cost:
+    """K2: per (pair, type) the mask join, the per-key verdicts, the
+    resource fit and the offerings x zones admission. It reads K1's
+    outputs and the catalog and pair-side arguments."""
+    a = precompute_arg_bytes(G=G, M=M, T=T, K=K, W=W, R=R, O=O, Z=Z)
+    inputs = combine_compat_outputs(M, G, K, W) + sum(a[k] for k in (
+        "it", "group_req", "daemon", "alloc", "template_its", "offerings",
+        "zone_values", "tol_template"))
+    return Cost(M * G * T * (2 * K * W + 8 * K + 3 * R + 2 * O * Z),
+                inputs + catalog_feasibility_outputs(M, G, T, Z))
+
+
+def exist_feasibility_outputs(G: int, N: int) -> int:
+    """Bytes of K3's outputs: exist_ok (bool) and exist_cap (int32)."""
+    return 5 * G * N
+
+
+def exist_feasibility_cost(G: int, N: int, K: int, W: int, R: int) -> Cost:
+    """K3: per (group, node) the mask join, the per-key verdicts and the
+    capacity's floor divisions."""
+    a = precompute_arg_bytes(G=G, N=N, K=K, W=W, R=R)
+    inputs = sum(a[k] for k in ("group", "group_req", "exist", "exist_avail",
+                                "tol_exist"))
+    return Cost(G * N * (2 * K * W + 9 * K + 2 * R),
+                inputs + exist_feasibility_outputs(G, N))
+
+
+def fits_matrix_cost(A: int, B: int, R: int) -> Cost:
+    """B5a: a compare and an AND per (avail row, request row, resource);
+    the "request of zero or less" test depends on (request row, resource)
+    alone: a compare and a select per request word."""
+    return Cost(2 * A * B * R + 2 * B * R, 4 * B * R + 4 * A * R + A * B)
+
+
+def offering_compat_cost(B: int, T: int, W: int, O: int,
+                         examined: int) -> Cost:
+    """B5b: about twelve operations per offering the early-exit reference
+    examines (``examined``, data-dependent); of the masks only the zone and
+    capacity-type rows are read."""
+    return Cost(12 * examined, 2 * B * W * 4 + 9 * T * O + B * T)
+
+
+def row_splice_cost(nbytes: int) -> Cost:
+    """B3: the staged rows read once and written once."""
+    return Cost(0, 2 * nbytes)
 
 
 _PREPARE = {"combine_compat": _combine_compat_args,

@@ -500,27 +500,83 @@ def _assemble(launched, mesh: Mesh, padded: binpack.PackProblem,
     return compat_tm, okz, ppn, zone_adm, exist_ok, exist_cap
 
 
+def _mesh_shape(mesh: Mesh, statics, padded: binpack.PackProblem, Gp: int,
+                Tp: int) -> dict:
+    """The padded shapes that pick a sharded launch's plans."""
+    shape = binpack.launch_shape(padded, statics["has_exist"])
+    shape.update(G=Gp, T=Tp)
+    return dict(slots=int(mesh.devices.size), **shape)
+
+
+def _mesh_stats(mesh: Mesh, statics, padded: binpack.PackProblem,
+                Gp: int, Tp: int):
+    """The sharded launch's obs.device.DEVICE_TIME entry (kind "mesh",
+    the slots' devices), registered at its first launch: operations and
+    bytes summed over the slots, and as peak the largest sum of the slots'
+    peaks on one device."""
+    from ..obs.device import DEVICE_TIME, device_label
+    shape = _mesh_shape(mesh, statics, padded, Gp, Tp)
+    key = ("mesh", mesh_cache_key(mesh), statics["zone_key"],
+           statics["captype_key"], *shape.values())
+    st = DEVICE_TIME.get(key)
+    if st is not None:
+        return st
+    g, t = mesh.devices.shape
+    ops = accessed = 0
+    per_dev: Dict[str, int] = {}
+    for (r, c), slot in np.ndenumerate(mesh.devices):
+        # K3 runs once a pods_groups row, on its first column's slot
+        o, a, peak = binpack.precompute_cost(
+            Gp // g, shape["M"], Tp // t, shape["N"] if c == 0 else 0,
+            shape["K"], shape["W"], shape["R"], shape["O"], shape["Z"])
+        dkey = str(slot.device)
+        ops, accessed = ops + o, accessed + a
+        per_dev[dkey] = per_dev.get(dkey, 0) + peak
+    return DEVICE_TIME.register(
+        key, "mesh", shapes=binpack.shape_summary(shape),
+        devices=[device_label(s.device) for s in mesh.devices.flat],
+        cost=(ops, accessed, max(per_dev.values())))
+
+
 def _run_sharded(p: binpack.PackProblem, mesh: Mesh):
     """Place, launch every slot, fetch every slot. Returns (raw outputs,
     padded, G, T). With tracing on, the launches (device.dispatch) and the
-    wait for the devices (device.execute) get spans of their own."""
+    wait for the devices (device.execute) get spans of their own,
+    attributed to the sharded launch in obs.device.DEVICE_TIME."""
     from ..obs.tracer import TRACER
     args, statics, padded, G, T, Tp = _sharded_dispatch(p, mesh)
     Gp = padded.group_req.shape[0]
-    devices = _distinct_devices(mesh.devices.flat)
     if not TRACER.enabled:
         launched = _launch_slots(mesh, args, statics, Gp, Tp)
     else:
-        with TRACER.span("device.dispatch", slots=int(mesh.devices.size)):
+        from ..obs.device import DEVICE_TIME, LaunchTimer
+        st = _mesh_stats(mesh, statics, padded, Gp, Tp)
+        devices = _distinct_devices(mesh.devices.flat)
+        with TRACER.span("device.dispatch", slots=int(mesh.devices.size),
+                         executable=st.label):
+            timer = LaunchTimer(devices)
             launched = _launch_slots(mesh, args, statics, Gp, Tp)
-        with TRACER.span("device.execute"):
-            for d in devices:
-                if d.type == "cuda":
-                    with kernels.device_failures(d):
-                        torch.cuda.synchronize(d)
+            dispatch_s = timer.launched()
+        with TRACER.span("device.execute", executable=st.label):
+            cuda = [d for d in devices if d.type == "cuda"]
+            with kernels.device_failures(cuda[0] if cuda else devices[0]):
+                device_s = timer.wait()
+        DEVICE_TIME.record(st, dispatch_s, device_s)
     with TRACER.span("device.fetch"):
         raw = _assemble(launched, mesh, padded, Gp, Tp, statics["has_exist"])
     return raw, padded, G, T
+
+
+def sharded_memory_analysis(p: binpack.PackProblem, mesh: Mesh) -> int:
+    """Per-device peak bytes (arguments + outputs, summed over the slots a
+    device holds) of the sharded precompute of this problem: the memory
+    ceiling the mesh exists to lower. Places the inputs as a launch would
+    (the mesh's upload cache is filled, nothing is launched) and registers
+    the launch's entry in obs.device.DEVICE_TIME, whose per-device
+    watermark gauges the live launches feed too."""
+    _, statics, padded, _, _, Tp = _sharded_dispatch(p, mesh)
+    return _mesh_stats(mesh, statics, padded,
+                       padded.group_req.shape[0], Tp).peak_bytes
 
 
 def _unpad_tensors(raw, padded: binpack.PackProblem, G: int, T: int

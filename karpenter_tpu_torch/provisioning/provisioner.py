@@ -7,9 +7,9 @@ deleting-node pod carryover (:316-320), scheduler construction per solve
 (scheduling/scheduler.go:117-151). The solve itself runs on the tensor path
 (provisioning/tensor_scheduler.py) on ``device`` — ``cuda`` unless the caller
 names another; ``"cpu"`` runs the kernels' plain PyTorch versions — with the
-host oracle as semantic authority. The per-pass device profile
-(``profile_dir``) and the flight recorder are not carried: asking for either
-raises NotImplementedError.
+host oracle as semantic authority. ``profile_dir`` profiles each pass's solve
+through obs.profile.PROFILER, and ``flight_recorder`` captures each live
+solve as a replayable record (flightrec/).
 
 The Binder controller closes the loop the kube-scheduler closes in the
 reference: once a nominated NodeClaim's node is initialized, bind the pods.
@@ -187,7 +187,9 @@ class Provisioner(SingletonController):
         # (until, registry_version, pending_uids) while every pending pod
         # is drought-blocked: identical inputs re-solve nothing, so hold
         self._exhausted_hold = None
-        # the flight recorder is not carried: refused (see the property)
+        # optional flightrec.FlightRecorder: live provisioning solves (NOT
+        # disruption simulation probes — those would flood the ring) are
+        # captured as replayable DecisionRecords
         self.flight_recorder = flight_recorder
         self.cluster = cluster
         self.cloud_provider = cloud_provider
@@ -226,29 +228,9 @@ class Provisioner(SingletonController):
         # run_until_quiet can fire several passes per simulator tick, so
         # polling last_scheduler would miss all but the final one
         self.solve_observer = None
-        # --enable-profiling analog (operator.go:159-175): not carried;
-        # setting it raises (see the property)
-        self.profile_dir = None
-
-    @property
-    def profile_dir(self) -> Optional[str]:
-        return None
-
-    @profile_dir.setter
-    def profile_dir(self, path: Optional[str]) -> None:
-        if path:
-            raise NotImplementedError(
-                "Provisioner: the per-pass device profile is not ported")
-
-    @property
-    def flight_recorder(self):
-        return None
-
-    @flight_recorder.setter
-    def flight_recorder(self, recorder) -> None:
-        if recorder is not None:
-            raise NotImplementedError(
-                "Provisioner: the flight recorder is not ported")
+        # --enable-profiling analog (operator.go:159-175): a torch.profiler
+        # session around each pass's solve when set
+        self.profile_dir: Optional[str] = None
 
     # -- trigger path (provisioning/controller.go:38-119) -------------------
 
@@ -329,7 +311,15 @@ class Provisioner(SingletonController):
                          pods=len(pods) + len(deleting_pods)) as psp:
             done = metrics.REGISTRY.measure(metrics.SCHEDULING_DURATION.name)
             started = self.clock.now()
-            results = self.schedule(pods + deleting_pods)
+            if self.profile_dir:
+                # per-pass device profile through the ONE process-wide
+                # profiler facility: a session already capturing makes
+                # this a no-op instead of a second session
+                from ..obs.profile import PROFILER
+                with PROFILER.pass_scope(self.profile_dir):
+                    results = self.schedule(pods + deleting_pods)
+            else:
+                results = self.schedule(pods + deleting_pods)
             done()
             metrics.UNSCHEDULABLE_PODS.set(len(results.pod_errors))
             self.last_results = results
@@ -539,6 +529,10 @@ class Provisioner(SingletonController):
             # probes (record=False) stay cold so their hypothetical node
             # subsets can't poison the caches or the warm-pack seed
             ts.problem_state = self.problem_state
+        if record and self.flight_recorder is not None \
+                and hasattr(ts, "flight_recorder"):
+            # the in-process TensorScheduler captures inside solve()
+            ts.flight_recorder = self.flight_recorder
         if not record and hasattr(ts, "ledger_subsystem"):
             # simulation probes are disruption candidate-build traffic:
             # flag them for the fallback ledger so the headline

@@ -9,9 +9,9 @@ semantics always match the reference (scheduler.go) either way.
 
 The precompute runs on ``device`` (default ``cuda``; ``"cpu"`` runs the
 kernels' plain PyTorch versions), or once per slot of a ``mesh``
-(parallel/mesh.py). The persistent cross-pass ProblemState and the sharded
-pack are carried as in the JAX package; the flight recorder is not, and
-asking for it raises NotImplementedError.
+(parallel/mesh.py). The persistent cross-pass ProblemState, the sharded
+pack and the flight recorder (every solve captured as a replayable record,
+flightrec/) are carried as in the JAX package.
 """
 
 from __future__ import annotations
@@ -352,6 +352,10 @@ class TensorScheduler:
         # the identical view.
         self.drought_patterns: tuple = ()
         self._drought_pinned = False
+        # optional flightrec.FlightRecorder: every solve() is captured as a
+        # replayable DecisionRecord. None (the default) costs one attribute
+        # compare per solve.
+        self.flight_recorder = None
         self.fallback_reason: str = ""
         # trace id of the pass this scheduler's last solve() ran under
         # ("" when tracing is disabled): stamped onto flight-recorder
@@ -408,30 +412,27 @@ class TensorScheduler:
             else:
                 problem_state.attach_mesh(None, 0, pack_shards)
 
-    @property
-    def flight_recorder(self):
-        return None
-
-    @flight_recorder.setter
-    def flight_recorder(self, recorder) -> None:
-        if recorder is not None:
-            raise NotImplementedError(
-                "TensorScheduler: the flight recorder is not ported")
-
     # -- public -------------------------------------------------------------
 
     def solve(self, pods: List[Pod], prebuckets=None) -> Results:
         from ..utils.gcpause import no_gc
+        rec = self.flight_recorder
         # roots its own PassTrace when no pass span is active (bench, sims);
         # nests under a pass loop otherwise
         with TRACER.span("solve", pods=len(pods)) as sp:
+            started = time.perf_counter() if rec is not None else 0.0
             with no_gc():
                 results = self._solve(pods, prebuckets)
             sp.set(encode_kind=self.encode_kind,
                    fallback_reason=self.fallback_reason)
             TRACER.annotate(encode_kind=self.encode_kind)
+            # the pass trace_id joins this solve's trace, its flight-recorder
+            # record, and the provisioner's log line
             self.last_trace_id = TRACER.current_trace_id()
             self._record_fallbacks(len(pods))
+            if rec is not None:
+                rec.capture_provisioning(self, pods, results,
+                                         time.perf_counter() - started)
         return results
 
     def _solve(self, pods: List[Pod], prebuckets=None) -> Results:

@@ -16,6 +16,7 @@ from karpenter_tpu_torch.ops import kernels
 from test_torch_support import (JAX, PORT, assert_tensors_equal,
                                 bench_workload, build_problem, mini_workload,
                                 restricted_workload)
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 
 ZONES_12 = [f"zone-{i:02d}" for i in range(12)]
 ZONES_40 = [f"zone-{i:02d}" for i in range(40)]

@@ -15,6 +15,7 @@ import torch
 import test_torch_support as support
 from test_torch_support import (JAX, PORT, ROOTS, LiveEnv, MinValuesReq,
                                 command_summary, pkg, stuck_fleet)
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 
 OD, SPOT = "on-demand", "spot"
 CPUS = ("100m", "250m", "500m", "1", "2")
@@ -132,6 +133,24 @@ def test_method_commands_match(method, fleet):
     if fleet == "oversized" and method == "SingleNodeConsolidation":
         assert summary["decision"] == "replace" and \
             summary["replacements"][0], summary
+
+
+@pytest.mark.parametrize("fleet,method,decision,n_candidates", [
+    ("underutilized_fleet", "MultiNodeConsolidation", "delete", 100),
+    ("stuck_fleet", "SingleNodeConsolidation", "delete", 1)])
+def test_consolidation_at_full_size_matches(fleet, method, decision,
+                                            n_candidates):
+    """chip_smoke.py's consolidation phases at their 5,000 nodes: equal
+    candidates, budgets and commands in both packages."""
+    got = {root: cold_pass(getattr(support, fleet)(root, 5000), method)
+           for root in ROOTS}
+    assert got[PORT] == got[JAX]
+    cands, _, summary = got[PORT]
+    assert len(cands) == 5000
+    assert (summary["decision"], len(summary["candidates"])) == \
+        (decision, n_candidates)
+    if fleet == "stuck_fleet":
+        assert summary["candidates"] == ["single-node-04999"]
 
 
 def _plain(x):

@@ -16,6 +16,8 @@ from karpenter_tpu.scheduling.requirements import (ALLOW_UNDEFINED_WELL_KNOWN,
                                                    Requirements)
 from karpenter_tpu_torch.ops import feasibility as tfeas
 
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
+
 KEYS = ["topology.kubernetes.io/zone", "kubernetes.io/arch", "example.com/team",
         "example.com/tier", "example.com/gen"]
 VALUES = {

@@ -39,9 +39,18 @@ pods = chip_smoke.bench_pods(90, 9)
 ts = TensorScheduler([chip_smoke.default_pool()], {{"default": catalog}},
                      state_nodes=chip_smoke.existing_nodes(catalog, 6),
                      force_tensor=True, device="cpu")
+# recorded, with the device time attributed, and replayed
+from karpenter_tpu_torch.flightrec import (FlightRecorder, loads_record,
+                                           replay_record)
+from karpenter_tpu_torch.obs import DEVICE_TIME
+ts.flight_recorder = FlightRecorder()
 results = ts.solve(pods)
 assert ts.fallback_reason == "" and ts.partition == (len(pods), 0)
 assert results.new_nodeclaims
+assert DEVICE_TIME.snapshot()
+report = replay_record(loads_record(ts.flight_recorder.lines()[-1]),
+                       device="cpu")
+assert report.ok, report.render()
 
 # the provisioner and disruption loops of chip_smoke.py at a small fleet
 env = chip_smoke.stuck_fleet("cpu", 12, "dscale")

@@ -17,6 +17,7 @@ from karpenter_tpu_torch.provisioning.tensor_scheduler import (
     SolverCircuitBreaker)
 
 from test_torch_support import PORT, build_problem, mini_workload, scheduler
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 
 FAKE_NVCC = """#!/bin/sh
 echo "$@" >> "$(dirname "$0")/calls"
@@ -330,6 +331,92 @@ def test_fits_matrix_wrapper_matches_jax_on_the_cpu(A, B, R):
                                   got.numpy())
 
 
+#: B5a's edge shapes: B around the store widths and a tile of 4,096 rows,
+#: A of one row and of the padded node axis, R of 1, 4 (the int4 path) and 9
+FITS_EDGES = [(A, B, R) for A in (1, 8192) for B in (1, 7, 120, 121, 4096)
+              for R in (1, 4, 9)]
+
+
+def _fits_emulated(plan, req: np.ndarray, avail: np.ndarray) -> np.ndarray:
+    """csrc/fits_matrix.cu's work split, run in numpy: every block stages
+    its request tile into the padded run layout (a request of zero or less
+    as INT_MIN), every thread item (avail row, run) writes its run's
+    `width` bytes. Fails on a staged slot or an
+    output byte written twice, or a staged tile past the plan's smem."""
+    A, R = avail.shape
+    B = req.shape[0]
+    out = np.full(A * B, 255, dtype=np.uint8)
+    stride = plan.width * R + (4 if plan.vec4 else 1)
+    for by in range(plan.grid_b):
+        b0 = by * plan.tile_b
+        runs = min(plan.tile_b, B - b0) // plan.width
+        smem = np.full(max(1, plan.smem // 4), -7, dtype=np.int64)
+        flat = req[b0:b0 + runs * plan.width].reshape(-1)
+        flat = np.where(flat <= 0, np.iinfo(np.int32).min, flat)
+        for w in range(runs * plan.width * R):
+            col = w // R
+            slot = (col // plan.width) * stride + (col % plan.width) * R \
+                + w - col * R
+            assert slot * 4 < plan.smem and smem[slot] == -7
+            smem[slot] = flat[w]
+        for bx in range(plan.grid_a):
+            a0 = bx * plan.rows
+            for i in range(min(plan.rows, A - a0) * runs):
+                a, c = a0 + i // runs, i % runs
+                s = smem[c * stride:c * stride + plan.width * R]
+                q = s.reshape(plan.width, R)
+                fit = np.all(q <= avail[a], axis=1)
+                at = a * B + b0 + c * plan.width
+                assert at % plan.width == 0
+                assert (out[at:at + plan.width] == 255).all()
+                out[at:at + plan.width] = fit
+    assert (out != 255).all(), "an output byte was never written"
+    return out.reshape(A, B).astype(bool)
+
+
+@pytest.mark.parametrize("A,B,R", [(A, B, R) for A, B, R in FITS_EDGES
+                                   if A == 1 or B <= 7]
+                         + [(8192, 120, 4)])
+def test_fits_plan_writes_every_output_once(A, B, R):
+    """The kernel's work split, emulated at B5a's edge shapes (the large
+    ones at one avail row, whose split is the same per row), equals the
+    plain version: zero, negative, INT_MIN and INT_MAX requests included."""
+    rng = np.random.default_rng(A * B * R)
+    req = rng.integers(-5, 60, (B, R)).astype(np.int32)
+    req.reshape(-1)[::5] = 0
+    req.reshape(-1)[1::7] = -2**31
+    req.reshape(-1)[2::11] = 2**31 - 1
+    avail = rng.integers(-5, 80, (A, R)).astype(np.int32)
+    avail.reshape(-1)[::13] = 2**31 - 1
+    want = kernels.feas.fits_matrix(torch.from_numpy(req),
+                                    torch.from_numpy(avail)).numpy()
+    for aligned in (True, False):
+        plan = kernels.fits_plan(A, B, R, aligned=aligned)
+        assert plan.vec4 == (R == 4 and aligned)
+        assert plan.smem <= kernels.FITS_SMEM_BYTES
+        np.testing.assert_array_equal(_fits_emulated(plan, req, avail), want)
+
+
+def test_fits_plan_at_the_solve_shape():
+    """8-byte stores (the widest width dividing 120), one tile of all 120
+    request rows, 17 avail rows a block: 482 blocks of 255 busy threads."""
+    plan = kernels.fits_plan(8192, 120, 4)
+    assert plan == kernels.FitsPlan(width=8, vec4=True, tile_b=120, rows=17,
+                                    grid_a=482, grid_b=1, smem=15 * 36 * 4)
+    assert kernels.fits_plan(8192, 4096, 4).width == 16
+    assert kernels.fits_plan(8192, 12, 4).width == 4
+    assert kernels.fits_plan(8192, 121, 4).width == 1
+    wide = kernels.fits_plan(8192, 4096, 9)
+    assert wide.grid_b > 1 and wide.tile_b % 16 == 0
+
+
+def test_fits_matrix_refuses_sizes_past_32_bit_indexing():
+    req = torch.empty((70_000, 4), dtype=torch.int32)
+    avail = torch.empty((40_000, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="32-bit"):
+        kernels._fits_matrix_args(req, avail)
+
+
 @pytest.mark.parametrize("W", [1, 2, 5])
 def test_offering_compat_wrapper_matches_jax_on_the_cpu(W):
     """Value indices from -1 to past 32 * W: the 32-bit word boundaries and
@@ -476,11 +563,12 @@ def test_join_tiles_match_the_kernel_sources(name):
     assert tiles == kernels.JOIN_MICRO_TILES[name]
 
 
-def test_join_ablation_edits_apply_to_the_sources():
-    """Every source edit of join_ablation.py's variants still finds its
-    text, once, in the kernel sources."""
+@pytest.mark.parametrize("table", ["VARIANTS", "FITS_VARIANTS"])
+def test_join_ablation_edits_apply_to_the_sources(table):
+    """Every source edit of join_ablation.py's variants (K2 / K3, and
+    fits_matrix) still finds its text, once, in the kernel sources."""
     import join_ablation
-    for variant, edits in join_ablation.VARIANTS.items():
+    for variant, edits in getattr(join_ablation, table).items():
         for name, text, _ in edits:
             count = (kernels.CSRC / name).read_text().count(text)
             assert count == 1, (variant, name, text, count)

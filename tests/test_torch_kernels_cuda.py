@@ -204,6 +204,46 @@ def test_fits_matrix_matches_plain(A, B, R):
     assert out.any()
 
 
+def fits_edge_inputs(A, B, R, seed):
+    """Requests and avail rows with zero, negative, INT_MIN and INT_MAX
+    entries; an avail row of INT_MAX every 13th word."""
+    rng = np.random.default_rng(seed)
+    req = rng.integers(-5, 60, (B, R)).astype(np.int64)
+    flat = req.reshape(-1)
+    flat[::5], flat[1::7], flat[2::11] = 0, INT_MIN, INT_MAX
+    avail = rng.integers(-5, 80, (A, R)).astype(np.int64)
+    avail.reshape(-1)[::13] = INT_MAX
+    avail.reshape(-1)[3::17] = INT_MIN
+    return i32(req), i32(avail)
+
+
+@pytest.mark.parametrize("A,B,R", [(A, B, R) for A in (1, 8192)
+                                   for B in (1, 7, 120, 121, 4096)
+                                   for R in (1, 4, 9)])
+def test_fits_matrix_edges_match_plain(A, B, R):
+    """Every store width (16 at B = 4,096, 8 at 120, bytes at 1, 7, 121),
+    request tiles at B = 4,096 x R = 9, the int4 path at R = 4."""
+    req, avail = fits_edge_inputs(A, B, R, A + B + R)
+    out = kernels.fits_matrix(req, avail)
+    torch.cuda.synchronize()
+    assert_same((out,), (feas.fits_matrix(req, avail),))
+
+
+@pytest.mark.parametrize("B", [120, 121])
+def test_fits_matrix_unaligned_avail_matches_plain(B):
+    """An avail view one word in from its storage, not 16-byte aligned: the
+    launch takes the runtime-R path at R = 4."""
+    req, avail = fits_edge_inputs(8192, B, 4, B)
+    buf = torch.cat([avail.new_zeros(1), avail.reshape(-1)])
+    view = buf[1:].view(8192, 4)
+    assert view.data_ptr() % 16 != 0
+    assert not kernels.fits_plan(8192, B, 4,
+                                 aligned=view.data_ptr() % 16 == 0).vec4
+    out = kernels.fits_matrix(req, view)
+    torch.cuda.synchronize()
+    assert_same((out,), (feas.fits_matrix(req, view),))
+
+
 @pytest.mark.parametrize("W", [1, 2, 64])
 def test_offering_compat_matches_plain(W):
     """Value indices from -1 to past 32 * W, across word boundaries."""
@@ -529,3 +569,24 @@ def test_mesh_precompute_on_one_card_matches_cpu():
     assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0) | {
         "combine_compat": 8, "catalog_feasibility": 8, "exist_feasibility": 4}
     assert_tensors_equal(binpack.precompute(problem, device="cpu"), got)
+
+
+def test_launch_timer_device_time_is_the_wait_after_dispatch():
+    """LaunchTimer's device time is the host's wait for the launches after
+    ``launched()``: a spin enqueued before it is waited for there, and a
+    wait for work already done is short."""
+    import time
+
+    from karpenter_tpu_torch.obs.device import LaunchTimer
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.synchronize()
+    timer = LaunchTimer([dev])
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of spinning
+    dispatch = timer.launched()
+    waited = timer.wait()
+    assert dispatch < 0.05 < waited, (dispatch, waited)
+    timer = LaunchTimer([dev])
+    torch.cuda._sleep(1000)
+    timer.launched()
+    time.sleep(0.05)
+    assert timer.wait() < 0.01

@@ -26,6 +26,7 @@ from test_torch_support import (JAX, PORT, PACK_FIELDS, ROOTS,
                                 assert_tensors_equal, bench_workload,
                                 build_problem, cpu_mesh, digest, nodepool,
                                 pkg, pod, scheduler, state_node)
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

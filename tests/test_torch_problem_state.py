@@ -16,6 +16,7 @@ import pytest
 from test_torch_support import (JAX, PORT, ROOTS, ChurnEnv, ChurnPair, digest,
                                 deployment, nodepool, pkg, scheduler,
                                 warm_pkg)
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 
 
 def dep(name, n, **kw):

@@ -10,6 +10,7 @@ import torch
 from test_torch_support import (JAX, PORT, ROOTS, LiveEnv, deployment,
                                 live_pkg, mini_workload, pkg,
                                 provisioning_digest)
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 from test_torch_solve_parity import SEEDS, fuzz_case
 
 
@@ -121,21 +122,23 @@ def test_deleting_node_pods_ride_along():
 def test_device_and_unported_options():
     """The port's Provisioner runs on the card unless told otherwise (and
     refuses a default device with no CUDA present); the per-pass profile
-    and the flight recorder are not carried and are refused."""
+    and the flight recorder, once refused, are carried: each is kept where
+    the reference keeps it."""
+    from karpenter_tpu_torch.flightrec import FlightRecorder
     lv = live_pkg(PORT)
     env = LiveEnv(PORT, [])
     prov = env.provisioner
     assert prov.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="profile"):
-        prov.profile_dir = "/tmp/profile"
-    with pytest.raises(NotImplementedError, match="flight recorder"):
-        lv.provisioner.Provisioner(env.store, env.cluster, env.provider,
-                                   env.clock, device="cpu",
-                                   flight_recorder=object())
-    with pytest.raises(NotImplementedError, match="flight recorder"):
-        lv.controller.DisruptionController(
-            env.store, env.cluster, prov, env.queue, env.clock,
-            flight_recorder=object())
+    assert prov.profile_dir is None and prov.flight_recorder is None
+    prov.profile_dir = "/tmp/profile"
+    assert prov.profile_dir == "/tmp/profile"
+    rec = FlightRecorder()
+    assert lv.provisioner.Provisioner(
+        env.store, env.cluster, env.provider, env.clock, device="cpu",
+        flight_recorder=rec).flight_recorder is rec
+    assert lv.controller.DisruptionController(
+        env.store, env.cluster, prov, env.queue, env.clock,
+        flight_recorder=rec).flight_recorder is rec
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             lv.provisioner.Provisioner(env.store, env.cluster, env.provider,

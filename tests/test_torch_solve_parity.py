@@ -16,14 +16,15 @@ from test_torch_support import (JAX, PORT, ROOTS, bench_pods, bench_workload,
                                 default_pool, existing_nodes, mini_workload,
                                 nodepool, pkg, pod, restricted_workload,
                                 scheduler)
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 
 ZONES = ("test-zone-a", "test-zone-b", "test-zone-c")
 CPUS = ("100m", "250m", "500m", "1", "1500m", "2", "3")
 MEMS = ("128Mi", "256Mi", "512Mi", "1Gi", "2Gi", "4Gi")
-# seeds of test_parity_fuzzer.py's corpus that between them cover several
-# pools, taints, zone requirements, limits, selectors, spreads, affinities
-# and unschedulable pods
-SEEDS = (1002, 1003, 1005, 1010, 1020, 1031, 1032, 1035)
+# every seed of test_parity_fuzzer.py's corpus: between them they cover
+# several pools, taints, zone requirements, limits, selectors, spreads,
+# affinities and unschedulable pods
+SEEDS = tuple(range(1000, 1040))
 
 
 def _spread(root, key, max_skew, label_val, min_domains=None):
@@ -246,6 +247,23 @@ def test_bench_mix_absorbed_by_existing_nodes_decisions():
     for name, msg in d["errors"].items():
         assert int(name.split("-")[1]) % 9 == 3, name
         assert msg == "hostname pod affinity: node capacity exhausted", msg
+
+
+@pytest.mark.parametrize("n_nodes,claims,existing,errors",
+                         [(0, 513, 0, 1336), (5000, 0, 1352, 4204)],
+                         ids=["cold", "existing_nodes"])
+def test_north_star_workload_decisions(n_nodes, claims, existing, errors):
+    """chip_smoke.py's north-star solve at full size: 49,920 pods of the
+    benchmark mix x 2,000 types, cold and against 5,000 existing nodes,
+    forced onto the tensor path."""
+    def make(root):
+        pools, its, nodes, pods = bench_workload(root, 49920, 2000,
+                                                 n_nodes=n_nodes)
+        return pools, its, pods, nodes
+    d = assert_same_decisions(make, force_tensor=True)
+    assert d["fallback_reason"] == "" and d["partition"] == [49920, 0]
+    assert (len(d["claims"]), len(d["existing"]), len(d["errors"])) == \
+        (claims, existing, errors)
 
 
 def _plain(obj):

@@ -13,6 +13,7 @@ import pytest
 
 from test_torch_support import (JAX, PORT, ROOTS, ChurnPair, deployment,
                                 digest, warm_pkg)
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 
 
 def _solve(env, ps, batch, state_nodes=None):

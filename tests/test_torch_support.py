@@ -12,10 +12,35 @@ import importlib
 from types import SimpleNamespace
 
 import numpy as np
+import pytest
 
 JAX = "karpenter_tpu"
 PORT = "karpenter_tpu_torch"
 ROOTS = (JAX, PORT)
+
+
+#: the per-launch device metric families, in either package's registry
+DEVICE_FAMILIES = ("DEVICE_DISPATCHES", "DEVICE_DISPATCH_SECONDS",
+                   "DEVICE_EXECUTE_SECONDS", "DEVICE_MEMORY_PEAK")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def device_series_kept():
+    """Each package's device metric series as they were before a module's
+    tests, once they end (autouse where a module imports it). Those
+    families keep 64 series a process, one a launch shape, and under xdist
+    one worker runs modules of both packages: a module's solves must not
+    fill them for the device tests of the modules after it, the JAX
+    package's ``tests/test_obs_device.py`` among them."""
+    families = [getattr(importlib.import_module(f"{root}.metrics.registry"),
+                        name)
+                for root in ROOTS for name in DEVICE_FAMILIES]
+    saved = [dict(m._values) for m in families]
+    yield
+    for m, values in zip(families, saved):
+        m._values.clear()
+        m._values.update(values)
+
 
 PACK_FIELDS = ("compat_tm", "it_ok", "ppn", "it_ok_z", "zone_adm",
                "exist_ok", "exist_cap")
