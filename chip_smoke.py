@@ -29,7 +29,14 @@ clock):
 - single-node consolidation over 5,000 candidates of which only the last
   can go;
 - the DisruptionController (all four methods) over such a fleet: a cold
-  pass, then warm passes served by its streaming state.
+  pass, then warm passes served by its streaming state;
+- the Operator, as its users run it: the whole controller roster over the
+  kwok provider (2,000 types, attached to the operator's own store) and
+  the 49,920 pods of the benchmark mix, stepped until every pod that can
+  be placed is bound, then every other pod of each deployment deleted and
+  the clock moved past the consolidation TTL until a disruption command
+  has executed and the cluster is quiet again; every step's store held to
+  the same step of the same operator on the CPU.
 
 It checks that the kernels carried every path (launch counts, zeroed just
 before each path and read just after), that nothing fell back to the host
@@ -315,7 +322,13 @@ def churn_windows(pods, nodes, span):
 # measurement helpers
 # --------------------------------------------------------------------------
 
+#: seconds from the start of the script to each phase's first line
+PHASE_AT: dict = {}
+_T0 = time.perf_counter()
+
+
 def _emit(obj) -> None:
+    PHASE_AT.setdefault(obj.get("phase"), time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -1152,6 +1165,317 @@ def new_controller(env, flight_recorder=None):
 
 
 # --------------------------------------------------------------------------
+# the operator: the whole control loop as its users run it
+# --------------------------------------------------------------------------
+
+#: the burst settles in at most this many steps of 1.1 s
+OPERATOR_BURST_STEPS = 20
+#: the scale-down: steps of 1.1 s after the TTL has passed
+OPERATOR_SCALE_DOWN_STEPS = 40
+
+
+def _operator_digest(op, claims_in_order, commands) -> tuple:
+    """What the card's and the CPU's operators must agree on after every
+    step: claims by creation order (instance type, zone, capacity type),
+    each pod's node (by pod creation order), the nodes, and the disruption
+    commands so far."""
+    from karpenter_tpu_torch.api import labels as L
+    from karpenter_tpu_torch.api.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.api.objects import Node, Pod
+    import hashlib
+    live = {nc.name: nc.metadata.labels for nc in op.store.list(NodeClaim)}
+    claims = tuple((live[n].get(L.LABEL_INSTANCE_TYPE),
+                    live[n].get(L.LABEL_TOPOLOGY_ZONE),
+                    live[n].get(L.CAPACITY_TYPE_LABEL_KEY))
+                   for n in claims_in_order if n in live)
+    pods = hashlib.sha256("\n".join(
+        f"{p.namespace}/{p.name} {p.spec.node_name}"
+        for p in op.store.list(Pod)).encode()).hexdigest()
+    nodes = tuple(sorted(n.name for n in op.store.list(Node)))
+    return claims, pods, nodes, tuple(commands)
+
+
+def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
+                 n_its: int = N_ITS) -> dict:
+    """The port's Operator as a user runs it — the whole controller roster,
+    the flight recorder and the tracer at their default rings — over the
+    kwok provider with construct_catalog(n_its) and the operator's own
+    store, default_pool() and bench_pods(n_pods, n_deploys), on a fake
+    clock:
+
+    - burst: every pod pending; step() and 1.1 s, until step() is quiet
+      twice in a row with every pod bound that can be: the pods still
+      pending are exactly the last provisioning pass's pod errors (the
+      mix's hostname-affinity deployments put 416 pods on one host, more
+      than any node holds) (OPERATOR_BURST_STEPS at most);
+    - scale-down: every other pod of each deployment deleted, the clock
+      moved past the 15 s consolidation TTL, then step() and 1.1 s until a
+      disruption command has executed, its queue is empty, every pod that
+      can be is bound and step() is quiet twice in a row.
+
+    Returns each step's record (wall seconds, launches, claims, nodes,
+    bound pods, commands, the host seconds of the exporters and of the
+    costliest controllers, the top spans), the digest after each step, and
+    every solve's fallback reason."""
+    from karpenter_tpu_torch.api.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.api.objects import Node, Pod
+    from karpenter_tpu_torch.cloudprovider.kwok import (KwokCloudProvider,
+                                                        construct_catalog)
+    from karpenter_tpu_torch.disruption.validation import \
+        CONSOLIDATION_TTL_SECONDS
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    from karpenter_tpu_torch.operator.operator import Operator
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.ops import kernels
+    from karpenter_tpu_torch.provisioning import tensor_scheduler as ts_mod
+    from karpenter_tpu_torch.utils.clock import FakeClock
+    provider = KwokCloudProvider(instance_types=construct_catalog(n_its))
+    op = Operator(Options(metrics_port=0, health_probe_port=0,
+                          log_level="error"), cloud_provider=provider,
+                  clock=FakeClock(), device=device)
+    # a caller's provider launches into the operator's own store
+    provider.store = op.store
+    claims_in_order, commands, fallbacks = [], [], []
+    op.store.watch(lambda ev: ev.kind is NodeClaim and ev.type == "ADDED"
+                   and claims_in_order.append(ev.obj.name))
+    add = op.queue.add
+
+    def queued(qc):
+        commands.append((qc.command.reason, tuple(sorted(
+            c.state_node.name() for c in qc.command.candidates)),
+            len(qc.replacement_names)))
+        return add(qc)
+    op.queue.add = queued
+    # host seconds by controller (the watch controllers and the
+    # singletons), the exporters among them
+    spent: collections.Counter = collections.Counter()
+    for c in op.manager.controllers + op.manager.singletons:
+        def timed(*obj, _inner=c.reconcile, _name=c.name):
+            t0 = time.perf_counter()
+            try:
+                return _inner(*obj)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+        c.reconcile = timed
+
+    def exporters_s() -> float:
+        return spent["metrics.pod"] + spent["metrics.node"]
+    solve = ts_mod.TensorScheduler.solve
+
+    def solve_noting(self, *a, **kw):
+        try:
+            return solve(self, *a, **kw)
+        finally:
+            fallbacks.append(self.fallback_reason)
+
+    op.store.create(default_pool())
+    pods = bench_pods(n_pods, n_deploys)
+    for p in pods:
+        op.store.create(p)
+    steps, digests = [], []
+
+    def bound() -> int:
+        return sum(1 for p in op.store.list(Pod) if p.spec.node_name)
+
+    def settled(last) -> bool:
+        """Every pod bound but the last provisioning pass's pod errors."""
+        r = op.provisioner.last_results
+        return last["bound"] + (len(r.pod_errors) if r else 0) == \
+            last["pods"]
+
+    def step(stage: str) -> bool:
+        before = dict(kernels.LAUNCHES)
+        spent0, last = dict(spent), TRACER.last()
+        t0 = time.perf_counter()
+        quiet = op.step()
+        _sync(device)
+        s = time.perf_counter() - t0
+        n_bound = bound()
+        steps.append({
+            "stage": stage, "step": len(steps), "s": s, "quiet": quiet,
+            "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before
+                         if kernels.LAUNCHES[k] - before[k]},
+            "claims": len(op.store.list(NodeClaim)),
+            "nodes": len(op.store.list(Node)), "bound": n_bound,
+            "pods": len(op.store.list(Pod)), "commands": len(commands),
+            "queued": len(op.queue.items),
+            "exporters_s": exporters_s() - spent0.get("metrics.pod", 0.0)
+            - spent0.get("metrics.node", 0.0),
+            "controllers_s": dict(sorted(
+                ((k, v - spent0.get(k, 0.0)) for k, v in spent.items()),
+                key=lambda kv: -kv[1])[:6]),
+            "spans_ms": merged_spans(traces_since(
+                last.trace_id if last else None), 8)})
+        digests.append(_operator_digest(op, claims_in_order, commands))
+        op.clock.step(1.1)
+        return quiet
+
+    ts_mod.TensorScheduler.solve = solve_noting
+    try:
+        calm = 0
+        for _ in range(OPERATOR_BURST_STEPS):
+            calm = calm + 1 if step("burst") else 0
+            if calm >= 2 and settled(steps[-1]):
+                break
+        else:
+            raise AssertionError(
+                f"operator burst: not settled in {OPERATOR_BURST_STEPS} "
+                f"steps: {steps[-1]}")
+        by_app: dict = {}
+        for p in pods:
+            by_app.setdefault(p.labels["app"], []).append(p)
+        for group in by_app.values():
+            for p in group[::2]:
+                op.store.delete(p)
+        step("scale_down")
+        op.clock.step(CONSOLIDATION_TTL_SECONDS + 1.0)
+        calm = 0
+        for _ in range(OPERATOR_SCALE_DOWN_STEPS):
+            calm = calm + 1 if step("scale_down") else 0
+            last = steps[-1]
+            if calm >= 2 and commands and not op.queue.items and \
+                    settled(last):
+                break
+        else:
+            raise AssertionError(
+                f"operator scale-down: not settled with a command executed "
+                f"in {OPERATOR_SCALE_DOWN_STEPS} steps: {steps[-1]}")
+    finally:
+        ts_mod.TensorScheduler.solve = solve
+        op.stop_serving()
+    errors = op.provisioner.last_results.pod_errors
+    return {"steps": steps, "digests": digests, "fallbacks": fallbacks,
+            "exporters_s": exporters_s(), "commands": commands,
+            "controllers_s": dict(spent.most_common()),
+            "pods": len(pods), "unschedulable": dict(collections.Counter(
+                errors.values()))}
+
+
+@contextlib.contextmanager
+def _held_at_each_shape(kernels):
+    """Inside the block, the first call of each feasibility kernel at each
+    set of input shapes is held against its plain version on the same
+    CUDA inputs (the path's own launch; the plain version counts none).
+    Yields the holds by kernel and shapes."""
+    held: dict = {}
+    saved = {name: getattr(kernels, name) for name in FEASIBILITY}
+
+    def holding(name, wrapper):
+        plain = getattr(kernels, f"{name}_plain")
+
+        def call(*args, **kw):
+            out = wrapper(*args, **kw)
+            shapes = tuple(tuple(t.shape) for t in _flat(args))
+            if (name, shapes) not in held:
+                equal, err = _compare(out, plain(*args, **kw))
+                assert equal, f"{name} at {shapes}: kernel and plain " \
+                              f"version disagree (max abs err {err})"
+                held[(name, shapes)] = err
+            return out
+        return call
+    for name, wrapper in saved.items():
+        setattr(kernels, name, holding(name, wrapper))
+    try:
+        yield held
+    finally:
+        for name, wrapper in saved.items():
+            setattr(kernels, name, wrapper)
+
+
+@contextlib.contextmanager
+def _process_state_kept():
+    """The port's process-wide tracer settings and metric registry as they
+    were before the block, once it ends: an Operator configures the tracer
+    and its controllers write the registry, and no later phase may read
+    what the operator phase left there."""
+    from karpenter_tpu_torch.metrics.registry import REGISTRY
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    tracer = (TRACER.enabled, TRACER.capacity, TRACER.watcher)
+    saved = [(m, {a: dict(getattr(m, a)) for a in ("_values", "_counts",
+                                                     "_sums")
+                  if hasattr(m, a)}) for m in REGISTRY._metrics.values()]
+    try:
+        yield
+    finally:
+        TRACER.enabled, TRACER.watcher = tracer[0], tracer[2]
+        TRACER.set_capacity(tracer[1])
+        for m, state in saved:
+            for a, values in state.items():
+                getattr(m, a).clear()
+                getattr(m, a).update(values)
+
+
+def operator_phase(device, record, **sizes) -> list:
+    """operator_run on ``device`` and on the CPU: the digests equal after
+    every step, no solve fell back, K1-K3 launched on the card. ``record``
+    is called just after the card's run (the path's launch counts).
+    Returns the JSON lines to print."""
+    from karpenter_tpu_torch.ops import kernels
+    with _process_state_kept():
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        with _held_at_each_shape(kernels) as held:
+            card = operator_run(device, **sizes)
+        card_s = time.perf_counter() - t0
+        launches = record()
+        t0 = time.perf_counter()
+        cpu = operator_run("cpu", **sizes)
+        cpu_s = time.perf_counter() - t0
+    assert len(card["digests"]) == len(cpu["digests"]), \
+        (len(card["digests"]), len(cpu["digests"]))
+    for i, (g, c) in enumerate(zip(card["digests"], cpu["digests"])):
+        assert g == c, f"operator step {i}: the card's and the CPU's " \
+                       f"stores differ"
+    bad = [r for r in card["fallbacks"] if r]
+    assert not bad and card["fallbacks"], \
+        f"operator: solves fell back to the host oracle: {bad[:3]}"
+    for name in FEASIBILITY:
+        assert launches[name] > 0, f"operator: {name} never launched"
+        assert any(k[0] == name for k in held), name
+    down = [s for s in card["steps"] if s["stage"] == "scale_down"]
+    assert card["commands"], "operator: no disruption command executed"
+    host_s = sum(s["s"] for s in card["steps"])
+    lines = []
+    for g, c in zip(card["steps"], cpu["steps"], strict=True):
+        lines.append({"phase": "operator_step", **g, "cpu_s": c["s"],
+                      "digest_equals_cpu": True})
+    slowest = {stage: max((s for s in card["steps"] if s["stage"] == stage),
+                          key=lambda s: s["s"])
+               for stage in ("burst", "scale_down")}
+    last = card["steps"][-1]
+    lines.append({
+        "phase": "operator", "pods": card["pods"],
+        "steps": len(card["steps"]),
+        "burst_steps": len(card["steps"]) - len(down),
+        "scale_down_steps": len(down),
+        "s": card_s, "cpu_s": cpu_s,
+        "steps_s": host_s, "cpu_steps_s": sum(s["s"] for s in cpu["steps"]),
+        "launches": {k: v for k, v in launches.items() if v},
+        "claims": last["claims"], "nodes": last["nodes"],
+        "bound": last["bound"], "pods_left": last["pods"],
+        "unschedulable": card["unschedulable"],
+        "commands": [list(c) for c in card["commands"]],
+        "solves": len(card["fallbacks"]), "fallbacks": 0,
+        "exporters_s": card["exporters_s"],
+        "exporters_share": card["exporters_s"] / host_s,
+        "controllers_s": card["controllers_s"],
+        "cpu_exporters_share": cpu["exporters_s"] / sum(
+            s["s"] for s in cpu["steps"]),
+        "top_spans": {stage: {"step": s["step"], "s": s["s"],
+                              "spans_ms": s["spans_ms"]}
+                      for stage, s in slowest.items()},
+        "digest_equals_cpu_every_step": True,
+        # each kernel held against its plain version at every set of input
+        # shapes the path gave it (the G axis of the disruption encodes on
+        # the 2,000-type catalog, the node axis of the operator's fleet)
+        "held_equal_at_path_shapes": [
+            {"name": name, "shapes": [list(x) for x in shapes],
+             "max_abs_err": err}
+            for (name, shapes), err in sorted(held.items())]})
+    return lines
+
+
+# --------------------------------------------------------------------------
 # B5a at its edge shapes; device attribution, the profiler and the flight
 # recorder on the card
 # --------------------------------------------------------------------------
@@ -1927,9 +2251,18 @@ def main() -> None:
     _emit({"phase": "disruption_controller_cpu", "cold_s": cpu_s})
     del env, cpu_env
 
+    # 14b. the operator: its whole roster over the north-star burst, then a
+    # scale-down that consolidates; every step's store equal to the same
+    # step on the CPU
+    def record_operator() -> dict:
+        record("operator")
+        return paths["operator"]
+    for line in operator_phase(DEVICE, record_operator):
+        _emit(line)
+
     # 15. every path launched the kernels it runs; the table counts them
     # all (B5 has no caller on any path: its launches stay 0)
-    expect = {"solve": FEASIBILITY, "solve_mesh_1x1": FEASIBILITY,
+    expect = {"operator": FEASIBILITY,"solve": FEASIBILITY, "solve_mesh_1x1": FEASIBILITY,
               "solve_mesh_4x2": FEASIBILITY,
               "warm_churn": FEASIBILITY,
               "warm_churn_mesh": FEASIBILITY + ("row_splice",),
@@ -1973,7 +2306,9 @@ def main() -> None:
     # replays of its records on the card
     _emit({"phase": "flight_recorder", **flight_recorder_phase(DEVICE)})
 
-    # 19. the kernel table and the verdict
+    # 19. the script's length by phase, the kernel table and the verdict
+    _emit({"phase": "elapsed", "s": time.perf_counter() - _T0,
+           "phase_at_s": {k: v for k, v in PHASE_AT.items() if k}})
     _emit({"kernels": list(rows.values())})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

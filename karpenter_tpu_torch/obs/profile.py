@@ -19,6 +19,14 @@ caller-chosen path (a debug port must not be a write-anywhere primitive).
 
 :meth:`Profiler.pass_scope` NESTS SAFELY: while a session is active the
 per-pass hook is a no-op instead of a second session.
+
+A ``torch.profiler`` session belongs to the thread that started it: it must
+stop there, and it ends with that thread. The operator's
+``/debug/profile?device=start`` runs on a short-lived HTTP handler thread,
+so ``start(worker=True)`` runs the session on the facility's own
+long-lived thread instead, and ``stop()`` from any thread stops such a
+session there. The card's kernels land in it whichever thread launched
+them; the host's operations of other threads do not.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import itertools
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from typing import Optional
 
@@ -56,6 +65,10 @@ class Profiler:
         self._session = None
         #: the Chrome trace the last stop() wrote
         self.last_trace: Optional[str] = None
+        # the one long-lived thread of start(worker=True) sessions, and
+        # whether the running session is one of them
+        self._worker = ThreadPoolExecutor(1, "karpenter-profiler")
+        self._on_worker = False
 
     @property
     def active(self) -> bool:
@@ -65,10 +78,17 @@ class Profiler:
     def out_dir(self) -> Optional[str]:
         return self._dir
 
-    def start(self, out_dir: Optional[str] = None) -> str:
+    def start(self, out_dir: Optional[str] = None,
+              worker: bool = False) -> str:
         """Begin a device profile into `out_dir` (or $KARPENTER_PROFILE_DIR).
         Returns the directory; raises ProfileError when a session is
-        already running or no sanctioned directory exists."""
+        already running or no sanctioned directory exists. ``worker`` runs
+        the session on the facility's own thread (for a caller whose thread
+        ends before the session does)."""
+        if worker:
+            out = self._worker.submit(self.start, out_dir).result()
+            self._on_worker = True
+            return out
         out_dir = out_dir or os.environ.get(PROFILE_DIR_ENV)
         if not out_dir:
             raise ProfileError(
@@ -92,6 +112,12 @@ class Profiler:
     def stop(self) -> str:
         """End the running profile and write its Chrome trace; returns the
         directory it wrote to."""
+        if self._on_worker:
+            self._on_worker = False
+            return self._worker.submit(self._stop).result()
+        return self._stop()
+
+    def _stop(self) -> str:
         import torch
         with self._lock:
             if self._dir is None:

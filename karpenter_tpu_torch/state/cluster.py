@@ -59,6 +59,25 @@ class Cluster:
         # counts against this; an unchanged revision proves the counts.
         # Conservative over-bumping is safe (just a recompute).
         self.topo_revision: int = 0
+        # the state nodes changed since a consumer last drained this, each
+        # with the pod uids whose requests changed on it (id(sn) -> (sn,
+        # uids)): the node-metrics exporter's input
+        # (controllers/metrics_exporters.NodeMetrics), so that it refreshes
+        # what changed instead of rescanning the cluster per event. None
+        # until a consumer installs a dict; then every mutation below lands
+        # in it.
+        self.node_journal: Optional[Dict[int, Tuple[StateNode, set]]] = None
+
+    def _journal(self, sn: Optional[StateNode],
+                 pod_uid: Optional[str] = None) -> None:
+        journal = self.node_journal
+        if journal is None or sn is None:
+            return
+        entry = journal.get(id(sn))
+        if entry is None:
+            entry = journal[id(sn)] = (sn, set())
+        if pod_uid is not None:
+            entry[1].add(pod_uid)
 
     # -- sync ---------------------------------------------------------------
 
@@ -93,6 +112,7 @@ class Cluster:
         placeholder = f"nodeclaim://{nodeclaim.name}"
         if pid != placeholder and placeholder in self.nodes:
             sn = self.nodes.pop(placeholder)
+            self._journal(self.nodes.get(pid))
             self.nodes[pid] = sn
         sn = self.nodes.get(pid)
         if sn is None:
@@ -101,6 +121,7 @@ class Cluster:
         else:
             sn.nodeclaim = nodeclaim
         sn.bump()
+        self._journal(sn)
         if sn.node is None and nodeclaim.status.node_name:
             node = self.store.get(Node, nodeclaim.status.node_name)
             if node is not None:
@@ -116,6 +137,7 @@ class Cluster:
             return
         sn.nodeclaim = None
         sn.bump()
+        self._journal(sn)
         if sn.node is None:
             del self.nodes[pid]
         self.topo_revision += 1
@@ -126,6 +148,7 @@ class Cluster:
         self.node_name_to_provider_id[node.name] = pid
         placeholder = f"node://{node.name}"
         if pid != placeholder and placeholder in self.nodes:
+            self._journal(self.nodes.get(pid))
             self.nodes[pid] = self.nodes.pop(placeholder)
         sn = self.nodes.get(pid)
         if sn is None:
@@ -135,6 +158,7 @@ class Cluster:
         else:
             sn.node = node
         sn.bump()
+        self._journal(sn)
         self.topo_revision += 1
         if first_seen:
             self._populate_resource_requests(sn, node.name)
@@ -148,6 +172,7 @@ class Cluster:
             if is_terminal(pod):
                 continue
             sn.update_pod(pod, get_volumes(self.store, pod))
+            self._journal(sn, pod.uid)
             self.bindings[_pod_key(pod)] = (node_name, pod.uid)
 
     def delete_node(self, name: str) -> None:
@@ -159,6 +184,7 @@ class Cluster:
             return
         sn.node = None
         sn.bump()
+        self._journal(sn)
         if sn.nodeclaim is None:
             del self.nodes[pid]
         self.topo_revision += 1
@@ -194,6 +220,7 @@ class Cluster:
             if sn is not None:
                 from ..scheduling.volumeusage import get_volumes
                 sn.update_pod(pod, get_volumes(self.store, pod))
+                self._journal(sn, pod.uid)
             self.mark_pod_schedulable(pod)
         elif old:
             self._unbind(old[1], old[0])
@@ -237,6 +264,7 @@ class Cluster:
         sn = self._node_by_name(node_name)
         if sn is not None:
             sn.cleanup_pod(pod_uid)
+            self._journal(sn, pod_uid)
 
     def _node_by_name(self, name: str) -> Optional[StateNode]:
         pid = self.node_name_to_provider_id.get(name)

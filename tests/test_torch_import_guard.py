@@ -60,6 +60,31 @@ assert cmd[1] == ["dscale-node-00011"], cmd
 _, cmd, _, _, _, _ = chip_smoke.multi_consolidation(
     chip_smoke.underutilized_fleet("cpu", 12), repeats=0)
 assert cmd.candidates
+
+# the operator: its whole roster settles a small burst on the CPU, serves
+# its routes, and its lazily imported kube backend and codec load too
+import urllib.request
+from karpenter_tpu_torch.operator.operator import Operator
+from karpenter_tpu_torch.operator.options import Options
+from karpenter_tpu_torch.utils.clock import FakeClock
+op = Operator(Options(metrics_port=0, health_probe_port=0, log_level="error",
+                      enable_profiling=True, feature_gates="NodeRepair"),
+              clock=FakeClock(), device="cpu")
+op.store.create(chip_smoke.default_pool())
+for p in chip_smoke.bench_pods(90, 9):
+    op.store.create(p)
+for _ in range(12):
+    op.step()
+    op.clock.step(1.1)
+assert all(p.spec.node_name for p in op.store.list(type(pods[0])))
+group = op.start_serving()
+for route in ("/metrics", "/debug/stateplane", "/debug/traces"):
+    urllib.request.urlopen(f"http://127.0.0.1:{{group.metrics_port}}{{route}}",
+                           timeout=10).read()
+op.stop_serving()
+import karpenter_tpu_torch.operator.__main__
+from karpenter_tpu_torch.kube import apiserver, k8s_codec
+assert k8s_codec.pod_from_k8s(k8s_codec.pod_to_k8s(pods[0])).name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "karpenter_tpu"))
 assert not bad, bad

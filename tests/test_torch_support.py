@@ -9,6 +9,7 @@ where its kernel wrappers take their plain PyTorch versions.
 """
 
 import importlib
+from contextlib import contextmanager
 from types import SimpleNamespace
 
 import numpy as np
@@ -40,6 +41,69 @@ def device_series_kept():
     for m, values in zip(families, saved):
         m._values.clear()
         m._values.update(values)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def tracer_kept():
+    """Each package's process-wide pass tracer as it was before a module's
+    tests, once they end (autouse where a module imports it): every
+    ``Operator`` configures its package's TRACER (enabled flag, ring size,
+    SLO watcher), and a later module of either package in the same worker
+    must not run with what an operator test left there."""
+    tracers = [importlib.import_module(f"{root}.obs.tracer").TRACER
+               for root in ROOTS]
+    saved = [(t.enabled, t.capacity, t.watcher) for t in tracers]
+    yield
+    for t, (enabled, capacity, watcher) in zip(tracers, saved):
+        t.enabled, t.watcher = enabled, watcher
+        t.set_capacity(capacity)
+
+
+@contextmanager
+def fresh_registry(root: str):
+    """``root``'s process-wide metric registry emptied for one timeline and
+    restored after it, so the exposition is the timeline's alone."""
+    reg = importlib.import_module(f"{root}.metrics.registry").REGISTRY
+    saved = []
+    for m in reg._metrics.values():
+        state = {a: dict(getattr(m, a)) for a in ("_values", "_counts",
+                                                  "_sums")
+                 if hasattr(m, a)}
+        saved.append((m, state))
+        for a in state:
+            getattr(m, a).clear()
+    try:
+        yield reg
+    finally:
+        for m, state in saved:
+            for a, values in state.items():
+                getattr(m, a).clear()
+                getattr(m, a).update(values)
+
+
+
+_FACTORIES = {}
+
+
+def factories(root: str):
+    """tests/factories.py for either package: make_pod, make_pods,
+    make_nodepool (and the rest of it) building the objects of ``root``.
+    The port's copy is factories.py's own source with the package name
+    swapped, so the two build the same objects; each keeps its own pod
+    name sequence."""
+    if root not in _FACTORIES:
+        if root == JAX:
+            _FACTORIES[root] = importlib.import_module("factories")
+        else:
+            import types
+            from pathlib import Path
+            src = (Path(__file__).with_name("factories.py").read_text()
+                   .replace("karpenter_tpu.", f"{root}."))
+            mod = types.ModuleType(f"{root}_factories")
+            exec(compile(src, f"<factories for {root}>", "exec"),
+                 mod.__dict__)
+            _FACTORIES[root] = mod
+    return _FACTORIES[root]
 
 
 PACK_FIELDS = ("compat_tm", "it_ok", "ppn", "it_ok_z", "zone_adm",
