@@ -38,8 +38,31 @@ clock):
   has executed and the cluster is quiet again; every step's store held to
   the same step of the same operator on the CPU.
 
+Then the solver sidecar, the process the north-star deployment calls over
+gRPC (karpenter_tpu_torch/sidecar), on the card:
+
+- ``sidecar``: a SolverSession over 127.0.0.1 to an in-process server on
+  cuda: the 49,920-pod batch cold, then with the 5,000 nodes as state
+  deltas (each equal to the in-process solve), then one window of each
+  kind, each carrying the server's parity re-solve and equal to a cold
+  in-process solve of the same inputs; request and response bytes, the
+  server's spans and launches per step;
+- ``sidecar_fleet``: two replicas sharing a handoff store; after the first
+  two steps the home replica drains, the client follows the
+  ``migrated_to`` rider, and the peer restores the session from its
+  checkpoint with no resync, its next solve equal to the in-process one;
+- ``sidecar_process``: ``python -m karpenter_tpu_torch.sidecar.server
+  --device cuda --port 0`` as a child process, one cold full-width
+  session solve equal to the sidecar's first, then SIGINT;
+- ``operator_sidecar``: the Operator with ``solver_backend="sidecar"``
+  against an in-process server, at 2,496 pods (6 deployments x 416, cut
+  from the operator phase's 49,920) x 2,000 types, burst and scale-down,
+  every step's store equal to the same run on the CPU, beside the tensor
+  backend's final store.
+
 It checks that the kernels carried every path (launch counts, zeroed just
-before each path and read just after), that nothing fell back to the host
+before each path and read just after; the sidecar's gRPC worker threads
+launch them too), that nothing fell back to the host
 oracle, and that the decisions equal the same solves, passes and commands
 run on the CPU through the plain versions, or cold solves on the card. The
 two kernels with no caller on any path (fits_matrix, offering_compat) are
@@ -69,7 +92,7 @@ After the paths, the port's observability on the card:
 - ``flight_recorder``: a FlightRecorder on the north-star Provisioner passes
   and on DisruptionController passes over 5,000 nodes (each record's
   decision equal to its pass's, the capture's cost, the JSONL bytes), and
-  every disruption record and one 4,992-pod provisioning record replayed on
+  every disruption record and one 2,496-pod provisioning record replayed on
   the card to a match.
 
 Each phase prints JSON lines. The line before last is the kernel table; the
@@ -81,6 +104,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import json
 import os
 import statistics
@@ -1196,12 +1220,13 @@ def _operator_digest(op, claims_in_order, commands) -> tuple:
 
 
 def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
-                 n_its: int = N_ITS) -> dict:
+                 n_its: int = N_ITS, sidecar: str = None) -> dict:
     """The port's Operator as a user runs it — the whole controller roster,
     the flight recorder and the tracer at their default rings — over the
     kwok provider with construct_catalog(n_its) and the operator's own
     store, default_pool() and bench_pods(n_pods, n_deploys), on a fake
-    clock:
+    clock; with ``sidecar`` (an address) its provisioning solves go to the
+    solver sidecar there (``solver_backend="sidecar"``):
 
     - burst: every pod pending; step() and 1.1 s, until step() is quiet
       twice in a row with every pod bound that can be: the pods still
@@ -1230,9 +1255,11 @@ def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
     from karpenter_tpu_torch.provisioning import tensor_scheduler as ts_mod
     from karpenter_tpu_torch.utils.clock import FakeClock
     provider = KwokCloudProvider(instance_types=construct_catalog(n_its))
+    backend = dict(solver_backend="sidecar", solver_address=sidecar) \
+        if sidecar else {}
     op = Operator(Options(metrics_port=0, health_probe_port=0,
-                          log_level="error"), cloud_provider=provider,
-                  clock=FakeClock(), device=device)
+                          log_level="error", **backend),
+                  cloud_provider=provider, clock=FakeClock(), device=device)
     # a caller's provider launches into the operator's own store
     provider.store = op.store
     claims_in_order, commands, fallbacks = [], [], []
@@ -1343,6 +1370,8 @@ def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
     finally:
         ts_mod.TensorScheduler.solve = solve
         op.stop_serving()
+        if op.solver_session is not None:
+            op.solver_session.close()
     errors = op.provisioner.last_results.pod_errors
     return {"steps": steps, "digests": digests, "fallbacks": fallbacks,
             "exporters_s": exporters_s(), "commands": commands,
@@ -1476,6 +1505,459 @@ def operator_phase(device, record, **sizes) -> list:
 
 
 # --------------------------------------------------------------------------
+# the solver sidecar: the same solves through the gRPC boundary
+# --------------------------------------------------------------------------
+
+#: the operator over the sidecar: 6 deployments of 416 pods (the operator
+#: phase runs 120 of them)
+OPERATOR_SIDECAR_PODS = 2_496
+OPERATOR_SIDECAR_DEPLOYS = 6
+#: seconds the sidecar child process may take to print its port
+CHILD_BOOT_S = 300
+
+
+@contextlib.contextmanager
+def _uncounted(kernels):
+    """Launches inside the block (a reference solve to compare with) leave
+    kernels.LAUNCHES, TILES and K1_PLANS as they were before it."""
+    saved = dict(kernels.LAUNCHES), TILES.copy(), K1_PLANS.copy()
+    try:
+        yield
+    finally:
+        kernels.LAUNCHES.update(saved[0])
+        for counter, kept in zip((TILES, K1_PLANS), saved[1:]):
+            counter.clear()
+            counter.update(kept)
+
+
+@contextlib.contextmanager
+def _restored(module, name: str, value):
+    """``module.name`` set back to ``value`` once the block ends."""
+    try:
+        yield
+    finally:
+        setattr(module, name, value)
+
+
+@contextlib.contextmanager
+def _serving(device, replica=None):
+    """A port sidecar server on ``device`` over 127.0.0.1 (its own Replica
+    unless one is given), yielding (server, address, replica). Once the
+    block ends the server is stopped, its sessions dropped and the
+    collector as it was: serve() freezes and disables it for the
+    process."""
+    import gc
+    from karpenter_tpu_torch.sidecar import server as srv
+    rep = replica or srv.Replica(name=f"smoke-{device}")
+    frozen = gc.get_freeze_count()
+    server, port = srv.serve(port=0, replica=rep, device=device)
+    try:
+        yield server, f"127.0.0.1:{port}", rep
+    finally:
+        server.stop(None)
+        with rep.sessions_lock:
+            rep.sessions.clear()
+        if not frozen:
+            gc.unfreeze()
+
+
+class _Wire:
+    """The request and response bytes of a SolverSession's RPCs since the
+    last take()."""
+
+    def __init__(self, session):
+        self.sent = self.received = 0
+        call = session._call
+
+        def counting(method, payload):
+            self.sent += len(payload)
+            out = call(method, payload)
+            self.received += len(out)
+            return out
+        session._call = counting
+
+    def take(self) -> tuple:
+        out = (self.sent, self.received)
+        self.sent = self.received = 0
+        return out
+
+
+def _sidecar_digest(results, batch) -> dict:
+    """The decision digest of a sidecar's answer (its fallback and
+    partition riders included)."""
+    from karpenter_tpu_torch.flightrec.record import decision_digest
+    return decision_digest(results, batch, results.fallback_reason,
+                           tuple(results.partition))
+
+
+def _local_digest(results, batch) -> dict:
+    """The decision digest of an in-process tensor-path solve (_solve
+    asserts it took no fallback and no host pods)."""
+    from karpenter_tpu_torch.flightrec.record import decision_digest
+    return decision_digest(results, batch, "", (len(batch), 0))
+
+
+def sidecar_step(session, wire, pool, catalog, batch, nodes=()) -> tuple:
+    """One solve through ``session`` as the operator makes it; the answer
+    must come from the tensor path (no fallback, no host pods, no degraded
+    rider). Returns (results, its record: client wall s, wire bytes, the
+    server's sidecar.* spans and the solve's own, queue wait, encode kind,
+    warm outcome, launches)."""
+    from karpenter_tpu_torch.obs.tracer import TRACER, phase_millis
+    from karpenter_tpu_torch.ops import kernels
+    before = dict(kernels.LAUNCHES)
+    last = TRACER.last()
+    t0 = time.perf_counter()
+    r = session.solve([pool], {"default": catalog}, batch,
+                      state_nodes=nodes)
+    s = time.perf_counter() - t0
+    sent, received = wire.take()
+    traces = traces_since(last.trace_id if last else None)
+    server = [t for t in traces
+              if any(sp.name == "sidecar.apply" for sp in t.spans)]
+    assert len(server) == 1, f"{len(server)} server traces for one solve"
+    spans = phase_millis(server[0])
+    assert r.fallback_reason == "" and not r.degraded, \
+        f"sidecar: fell back ({r.fallback_reason!r}, {r.degraded!r})"
+    assert tuple(r.partition) == (len(batch), 0), r.partition
+    assert r.encode_kind in ("cold", "delta"), r.encode_kind
+    return r, {
+        "pods": len(batch), "nodes": len(nodes), "s": s,
+        "request_bytes": sent, "response_bytes": received,
+        "sidecar_ms": {k: v for k, v in spans.items()
+                       if k.startswith("sidecar.")},
+        "solve_spans_ms": dict(sorted(
+            ((k, v) for k, v in spans.items()
+             if not k.startswith("sidecar.")), key=lambda kv: -kv[1])[:8]),
+        "queue_wait_ms": r.queue_wait_ms, "encode_kind": r.encode_kind,
+        "warm": r.warm, "parity": r.parity,
+        "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before
+                     if kernels.LAUNCHES[k] - before[k]}}
+
+
+def sidecar_phase(device, pool, catalog, pods, span, runs, solve_s,
+                  ts_mod) -> tuple:
+    """The north-star solves through the port's sidecar on ``device``: a
+    SolverSession over 127.0.0.1 to an in-process server. Step 1 the cold
+    batch, step 2 the batch with the 5,000 nodes (seed 7) sent as state
+    deltas, each equal to the in-process solve of phase solve_cold /
+    solve_existing_nodes (``runs``, ``solve_s`` their best seconds); then
+    the first window of each kind churn_windows builds, each carrying
+    parity_check (the server's cold re-solve: byte-identical) and equal to
+    a cold in-process solve of the same inputs (which counts no launch).
+    K1-K3 are held against their plain versions at each launch shape.
+    A window's wall time includes the server's parity re-solve, timed
+    apart as ``parity_s``. Returns (the lines to print, the window digests
+    by pass)."""
+    from karpenter_tpu_torch.ops import kernels
+    from karpenter_tpu_torch.sidecar import server as srv
+    from karpenter_tpu_torch.sidecar.client import SolverSession
+    lines, want = [], {}
+    probe, probed = srv._parity_probe, []
+
+    def timed_probe(*args):
+        t0 = time.perf_counter()
+        try:
+            return probe(*args)
+        finally:
+            probed.append(time.perf_counter() - t0)
+    srv._parity_probe = timed_probe
+    with _restored(srv, "_parity_probe", probe), _process_state_kept(), \
+            _held_at_each_shape(kernels) as held, \
+            _serving(device) as (_, address, rep):
+        session = SolverSession(address, tenant="smoke")
+        wire = _Wire(session)
+        nodes = existing_nodes(catalog)
+        windows = churn_windows(pods, nodes, span)
+        for i, kind, batch, dirty in itertools.islice(
+                windows, 1 + len(WINDOW_KINDS)):
+            if i == 0:
+                r, rec = sidecar_step(session, wire, pool, catalog, pods)
+                assert _sidecar_digest(r, pods) == _local_digest(
+                    runs["cold"], pods), "sidecar step 1: != solve_cold"
+                lines.append({"phase": "sidecar_step", "step": 1,
+                              "window": "cold", "in_process_s":
+                              solve_s["cold"], "digest_equals": "solve_cold",
+                              **rec})
+                label = "solve_existing_nodes"
+                local_s = solve_s["existing_nodes"]
+            else:
+                session.parity_every = 1
+                with _uncounted(kernels):
+                    _, r_cold, local_s = _solve(ts_mod, pool, catalog, batch,
+                                                nodes, device)
+                want[i] = _local_digest(r_cold, batch)
+                label = "cold in-process solve"
+            r, rec = sidecar_step(session, wire, pool, catalog, batch, nodes)
+            if i == 0:
+                assert _sidecar_digest(r, batch) == _local_digest(
+                    runs["existing_nodes"], batch), \
+                    "sidecar step 2: != solve_existing_nodes"
+            else:
+                rec["parity_s"] = probed.pop()
+                assert r.parity == "byte-identical", \
+                    f"sidecar window {i} ({kind}): parity {r.parity[:400]}"
+                assert _sidecar_digest(r, batch) == want[i], \
+                    f"sidecar window {i} ({kind}): != the cold solve"
+            lines.append({"phase": "sidecar_step", "step": 2 + i,
+                          "window": kind, "node_rows_changed": dirty,
+                          "in_process_s": local_s, "digest_equals": label,
+                          **rec})
+        sessions = srv.sessions_snapshot(rep)
+        session.close()
+    steps = list(lines)
+    lines.append({
+        "phase": "sidecar", "device": device, "pods": len(pods),
+        "instance_types": len(catalog), "nodes": len(nodes),
+        "steps": len(steps),
+        # a window's wall less its parity re-solve, over the cold step's
+        "warm_share_of_cold": {
+            ln["window"]: (ln["s"] - ln["parity_s"]) / steps[0]["s"]
+            for ln in steps[2:]},
+        "sessions": sessions,
+        "held_equal_at_path_shapes": _held_lines(held)})
+    for name in FEASIBILITY:
+        assert any(k[0] == name for k in held), name
+    return lines, want
+
+
+def _held_lines(held) -> list:
+    return [{"name": name, "shapes": [list(x) for x in shapes],
+             "max_abs_err": err}
+            for (name, shapes), err in sorted(held.items())]
+
+
+def sidecar_fleet_phase(device, pool, catalog, pods, span, runs,
+                        want) -> dict:
+    """Two Replicas of the port's sidecar on ``device`` with one shared
+    HandoffStore, each naming the other its peer. A fleet SolverSession
+    solves step 1 and step 2 of the sidecar phase on its home replica;
+    the home drains (every session exported to the store), the client
+    follows the draining NACK's ``migrated_to`` rider, and the peer
+    restores the session from the checkpoint for the next solve (the
+    wobble window): a migration, no resync, the digest of the cold
+    in-process solve of the same inputs (``want``)."""
+    from karpenter_tpu_torch.metrics.registry import SIDECAR_MIGRATIONS
+    from karpenter_tpu_torch.ops import kernels
+    from karpenter_tpu_torch.sidecar import server as srv
+    from karpenter_tpu_torch.sidecar.client import RetryPolicy, SolverSession
+    handoff = srv.HandoffStore()
+    reps = [srv.Replica(name=f"smoke-fleet-{i}", handoff=handoff)
+            for i in range(2)]
+    restore = srv.restore_session_checkpoint
+    restored: list = []
+
+    def timed_restore(data, device=None):
+        t0 = time.perf_counter()
+        out = restore(data, device=device)
+        restored.append(time.perf_counter() - t0)
+        return out
+    srv.restore_session_checkpoint = timed_restore
+    with _restored(srv, "restore_session_checkpoint", restore):
+        with _process_state_kept(), \
+                _held_at_each_shape(kernels) as held, \
+                _serving(device, reps[0]) as (server_a, addr_a, _), \
+                _serving(device, reps[1]) as (server_b, addr_b, _):
+            reps[0].peers, reps[1].peers = (addr_b,), (addr_a,)
+            servers = {addr_a: (server_a, reps[0]),
+                       addr_b: (server_b, reps[1])}
+            session = SolverSession(addr_a, tenant="smoke-fleet",
+                                    retry=RetryPolicy(deadline=600.0))
+            session.enable_fleet([addr_a, addr_b])
+            wire = _Wire(session)
+            home = session.address
+            nodes = existing_nodes(catalog)
+            windows = churn_windows(pods, nodes, span)
+            steps = []
+            r, rec = sidecar_step(session, wire, pool, catalog, pods)
+            assert _sidecar_digest(r, pods) == _local_digest(
+                runs["cold"], pods), "fleet step 1: != solve_cold"
+            steps.append({"step": 1, "replica": home, **rec})
+            _, _, batch, _ = next(windows)
+            r, rec = sidecar_step(session, wire, pool, catalog, batch, nodes)
+            assert _sidecar_digest(r, batch) == _local_digest(
+                runs["existing_nodes"], batch), "fleet step 2"
+            steps.append({"step": 2, "replica": home, **rec})
+            sid = session._session_id
+            t0 = time.perf_counter()
+            shed = servers[home][0].drain(grace=10.0)
+            drain_s = time.perf_counter() - t0
+            migrations = SIDECAR_MIGRATIONS.value({"reason": "restore"})
+            i, kind, batch, _ = next(windows)
+            r, rec = sidecar_step(session, wire, pool, catalog, batch, nodes)
+            peer = session.address
+            assert peer != home and session.failovers == 1, \
+                (home, peer, session.failovers)
+            assert SIDECAR_MIGRATIONS.value({"reason": "restore"}) == \
+                migrations + 1, "the peer did not restore the session"
+            assert session.resyncs == 0, "the migration cost a resync"
+            restored_session = servers[peer][1].sessions[sid]
+            assert restored_session.resyncs == 0
+            assert _sidecar_digest(r, batch) == want[i], \
+                f"fleet window {i} ({kind}): != the cold solve"
+            steps.append({"step": 3, "window": kind, "replica": peer,
+                          **rec})
+            session.close()
+    assert len(restored) == 1, restored
+    for name in FEASIBILITY:
+        assert any(k[0] == name for k in held), name
+    return {"phase": "sidecar_fleet", "device": device, "steps": steps,
+            "drain_s": drain_s, "shed": shed,
+            "restore_s": restored[0], "handoff_puts": handoff.puts,
+            "handoff_restores": handoff.restores,
+            "failovers": 1, "resyncs": 0, "digest_equals": True,
+            "held_equal_at_path_shapes": _held_lines(held)}
+
+
+def _child_port(proc, deadline: float) -> int:
+    """The port the sidecar child prints on its line 'solver sidecar
+    listening on 127.0.0.1:<port>' (its stdout read on a thread, so a
+    wait never blocks past the deadline)."""
+    import queue
+    import re
+    import threading
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    while time.perf_counter() < deadline:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            if proc.poll() is not None:
+                raise RuntimeError(f"the sidecar exited with "
+                                   f"{proc.returncode} before it listened")
+            continue
+        m = re.match(r"solver sidecar listening on 127\.0\.0\.1:(\d+)",
+                     line)
+        if m:
+            return int(m.group(1))
+    raise RuntimeError(f"the sidecar printed no port in {CHILD_BOOT_S} s")
+
+
+def sidecar_process_phase(device, pool, catalog, pods, want) -> dict:
+    """The sidecar as a deployment runs it: ``python -m
+    karpenter_tpu_torch.sidecar.server --device <device> --port 0`` as a
+    child process, one full-width cold session solve from here (its digest
+    ``want``), then SIGINT (drain and stop). Boot to first solve is timed
+    from the child's start. On any failure the child's stderr is
+    printed."""
+    import signal
+    import tempfile
+    from karpenter_tpu_torch.sidecar.client import RetryPolicy, SolverSession
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryFile(mode="w+") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "karpenter_tpu_torch.sidecar.server",
+             "--device", device, "--port", "0"], cwd=root,
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            port = _child_port(proc, t0 + CHILD_BOOT_S)
+            listening_s = time.perf_counter() - t0
+            session = SolverSession(f"127.0.0.1:{port}", tenant="child",
+                                    retry=RetryPolicy(deadline=600.0))
+            wire = _Wire(session)
+            t1 = time.perf_counter()
+            r = session.solve([pool], {"default": catalog}, pods)
+            solve_s = time.perf_counter() - t1
+            first_solve_s = time.perf_counter() - t0
+            sent, received = wire.take()
+            session.close()
+            assert r.fallback_reason == "" and not r.degraded, \
+                r.fallback_reason
+            assert tuple(r.partition) == (len(pods), 0), r.partition
+            assert _sidecar_digest(r, pods) == want, \
+                "sidecar child: != sidecar step 1"
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+            assert rc == 0, f"the sidecar exited with {rc} on SIGINT"
+        except BaseException:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            err.seek(0)
+            print(f"sidecar child stderr:\n{err.read()[-8000:]}",
+                  file=sys.stderr, flush=True)
+            raise
+    return {"phase": "sidecar_process", "device": device,
+            "command": f"python -m karpenter_tpu_torch.sidecar.server "
+                       f"--device {device} --port 0",
+            "listening_s": listening_s, "solve_s": solve_s,
+            "boot_to_first_solve_s": first_solve_s,
+            "request_bytes": sent, "response_bytes": received,
+            "encode_kind": r.encode_kind, "exit_code": rc,
+            "digest_equals_step_1": True}
+
+
+def operator_sidecar_phase(device, record,
+                           n_pods: int = OPERATOR_SIDECAR_PODS,
+                           n_deploys: int = OPERATOR_SIDECAR_DEPLOYS,
+                           n_its: int = N_ITS) -> list:
+    """The port's Operator with ``solver_backend="sidecar"`` against an
+    in-process port sidecar, both on ``device``: operator_run's burst
+    until quiet and its consolidating scale-down, every step's store equal
+    to the same run with both on the CPU; then
+    whether the final store equals the in-process (tensor backend)
+    operator's at the same size, on ``device`` (reported, not required).
+    ``record`` is called just after the card's run."""
+    from karpenter_tpu_torch.ops import kernels
+    sizes = dict(n_pods=n_pods, n_deploys=n_deploys, n_its=n_its)
+    with _process_state_kept():
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        with _held_at_each_shape(kernels) as held, \
+                _serving(device) as (_, address, _):
+            card = operator_run(device, sidecar=address, **sizes)
+        card_s = time.perf_counter() - t0
+        launches = record()
+        t0 = time.perf_counter()
+        with _serving("cpu") as (_, address, _):
+            cpu = operator_run("cpu", sidecar=address, **sizes)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tensor = operator_run(device, **sizes)
+        tensor_s = time.perf_counter() - t0
+    assert len(card["digests"]) == len(cpu["digests"]), \
+        (len(card["digests"]), len(cpu["digests"]))
+    for i, (g, c) in enumerate(zip(card["digests"], cpu["digests"])):
+        assert g == c, f"operator_sidecar step {i}: the card's and the " \
+                       f"CPU's stores differ"
+    bad = [r for r in card["fallbacks"] if r]
+    assert not bad and card["fallbacks"], \
+        f"operator_sidecar: solves fell back to the host oracle: {bad[:3]}"
+    for name in FEASIBILITY:
+        assert launches[name] > 0, f"operator_sidecar: {name} never launched"
+        assert any(k[0] == name for k in held), name
+    lines = [{"phase": "operator_sidecar_step", **g, "cpu_s": c["s"],
+              "digest_equals_cpu": True}
+             for g, c in zip(card["steps"], cpu["steps"], strict=True)]
+    last = card["steps"][-1]
+    lines.append({
+        "phase": "operator_sidecar", "pods": card["pods"],
+        "reduced": f"pods: {n_pods} ({n_deploys} deployments x "
+                   f"{n_pods // n_deploys}; the operator phase runs "
+                   f"{N_PODS // N_DEPLOYS * N_DEPLOYS})",
+        "steps": len(card["steps"]),
+        "scale_down_steps": sum(s["stage"] == "scale_down"
+                                for s in card["steps"]),
+        "commands": [list(c) for c in card["commands"]],
+        "s": card_s, "cpu_s": cpu_s,
+        "steps_s": sum(s["s"] for s in card["steps"]),
+        "cpu_steps_s": sum(s["s"] for s in cpu["steps"]),
+        "launches": {k: v for k, v in launches.items() if v},
+        "claims": last["claims"], "nodes": last["nodes"],
+        "bound": last["bound"], "unschedulable": card["unschedulable"],
+        "solves": len(card["fallbacks"]), "fallbacks": 0,
+        "digest_equals_cpu_every_step": True,
+        "tensor_backend_s": tensor_s,
+        "tensor_backend_steps": len(tensor["steps"]),
+        "final_store_equals_tensor_backend":
+            card["digests"][-1] == tensor["digests"][-1],
+        "held_equal_at_path_shapes": _held_lines(held)})
+    return lines
+
+
+# --------------------------------------------------------------------------
 # B5a at its edge shapes; device attribution, the profiler and the flight
 # recorder on the card
 # --------------------------------------------------------------------------
@@ -1485,12 +1967,14 @@ def operator_phase(device, record, **sizes) -> list:
 #: int4 path) and 9
 FITS_EDGES = [(A, B, R) for A in (1, 8192) for B in (1, 7, 120, 121, 4096)
               for R in (1, 4, 9)]
-#: the provisioning record replayed on the card: a 4,992-pod batch (12
+#: the provisioning record replayed on the card: a 2,496-pod batch (6
 #: deployments x 416 pods of the benchmark mix) against the 2,000-type
 #: catalog. The host oracle's greedy, which a replay runs beside the tensor
-#: path, takes minutes at that size already and grows with the batch, so
-#: the 49,920-pod records are held by their digests and not replayed
-REPLAY_PODS, REPLAY_DEPLOYS = 4_992, 12
+#: path, takes minutes at 4,992 pods already and grows with the batch, so
+#: the 49,920-pod records are held by their digests and not replayed; the
+#: batch was cut from 4,992 pods to keep the script under its 600 s
+#: budget once the sidecar phases joined it (PERF.md)
+REPLAY_PODS, REPLAY_DEPLOYS = 2_496, 6
 
 
 def fits_matrix_edges(dev) -> list:
@@ -1963,7 +2447,7 @@ def main() -> None:
         tiles[path], k1_plans[path] = _tiles(paths[path])
     _record_tiles(kernels)
     _reset_counts(kernels)
-    runs = {}
+    runs, best_s = {}, {}
     for label, state in (("cold", ()), ("existing_nodes", nodes)):
         _solve(ts_mod, pool, catalog, pods, state, DEVICE)  # warm-up
         best = None
@@ -1973,7 +2457,7 @@ def main() -> None:
             if best is None or elapsed < best[0]:
                 best = (elapsed, TRACER.last(), results)
         elapsed, trace, results = best
-        runs[label] = results
+        runs[label], best_s[label] = results, elapsed
         _emit({"phase": f"solve_{label}", "pods": len(pods),
                "instance_types": len(catalog), "existing_nodes": len(state),
                "best_s": elapsed, "pods_per_s": len(pods) / elapsed,
@@ -2260,9 +2744,38 @@ def main() -> None:
     for line in operator_phase(DEVICE, record_operator):
         _emit(line)
 
+    # 14c. the solver sidecar: the north-star solves through a
+    # SolverSession and gRPC on 127.0.0.1 to the port's server on the card,
+    # each equal to the in-process solve of the same inputs
+    _reset_counts(kernels)
+    lines, window_digests = sidecar_phase(DEVICE, pool, catalog, pods, span,
+                                          runs, best_s, ts_mod)
+    record("sidecar")
+    for line in lines:
+        _emit(line)
+    # 14d. two replicas and a handoff store: a drain migrates the session
+    _reset_counts(kernels)
+    fleet = sidecar_fleet_phase(DEVICE, pool, catalog, pods, span, runs,
+                                window_digests)
+    record("sidecar_fleet")
+    _emit(fleet)
+    # 14e. the sidecar as its own process, as a deployment starts it
+    _emit(sidecar_process_phase(DEVICE, pool, catalog, pods,
+                                _local_digest(runs["cold"], pods)))
+
+    # 14f. the operator over the sidecar backend, against the CPU
+    def record_operator_sidecar() -> dict:
+        record("operator_sidecar")
+        return paths["operator_sidecar"]
+    for line in operator_sidecar_phase(DEVICE, record_operator_sidecar):
+        _emit(line)
+
     # 15. every path launched the kernels it runs; the table counts them
     # all (B5 has no caller on any path: its launches stay 0)
-    expect = {"operator": FEASIBILITY,"solve": FEASIBILITY, "solve_mesh_1x1": FEASIBILITY,
+    expect = {"operator": FEASIBILITY, "sidecar": FEASIBILITY,
+              "sidecar_fleet": FEASIBILITY,
+              "operator_sidecar": FEASIBILITY,
+              "solve": FEASIBILITY, "solve_mesh_1x1": FEASIBILITY,
               "solve_mesh_4x2": FEASIBILITY,
               "warm_churn": FEASIBILITY,
               "warm_churn_mesh": FEASIBILITY + ("row_splice",),

@@ -4,9 +4,12 @@ Mirrors karpenter's pkg/operator/operator.go:105-206 (bootstrap) and
 pkg/controllers/controllers.go:61-111 (the full controller roster). The
 deterministic manager replaces controller-runtime; `run()` drives it in real
 time against a cloud provider (kwok by default), `step()` drives it under a
-fake clock for tests and simulations. Every solve, the disruption snapshot's
-included, runs its feasibility precompute on ``device``: ``cuda`` unless the
-caller names another; ``"cpu"`` runs the kernels' plain PyTorch versions.
+fake clock for tests and simulations. Every in-process solve, the disruption
+snapshot's included, runs its feasibility precompute on ``device``: ``cuda``
+unless the caller names another; ``"cpu"`` runs the kernels' plain PyTorch
+versions. With ``solver_backend="sidecar"`` the provisioning solves go to
+the solver sidecar at ``solver_address`` (sidecar/server.py, on its own
+device) through one SolverSession for the operator's lifetime.
 """
 
 from __future__ import annotations
@@ -43,15 +46,10 @@ class Operator:
                  clock: Optional[Clock] = None, device=None):
         from ..ops.binpack import resolve_device
         self.options = options or Options()
-        if self.options.solver_backend == "sidecar":
-            # refused before anything process-wide moves: a remote solver
-            # must never degrade silently into the in-process tensor path
-            raise ValueError(
-                "solver_backend='sidecar' is not available in "
-                "karpenter_tpu_torch yet: the remote solver (sidecar/"
-                "server.py, client.py) is ROADMAP Queue A 4")
         # checked before the tracer is configured too: with CUDA asked for
-        # and absent the boot fails here and never runs on the CPU
+        # and absent the boot fails here and never runs on the CPU. The
+        # sidecar backend needs it as well: the disruption loop's
+        # precompute runs in this process
         self.device = resolve_device(device)
         configure_logging(self.options.log_level)
         self.log = get_logger("operator")
@@ -123,8 +121,25 @@ class Operator:
         self.serving: Optional[ServingGroup] = None
 
         gates = self.options.gates
+        scheduler_factory = None
+        self.solver_session = None
+        if self.options.solver_backend == "sidecar":
+            from ..sidecar.client import RemoteScheduler, SolverSession
+            address = self.options.solver_address
+            # one persistent session for the operator's lifetime: the
+            # catalog/nodepools ride the wire once, state nodes as deltas
+            self.solver_session = SolverSession(address)
+            session = self.solver_session
+
+            def scheduler_factory(nodepools, instance_types, state_nodes,
+                                  daemonset_pods, cluster):
+                return RemoteScheduler(address, nodepools, instance_types,
+                                       state_nodes=state_nodes,
+                                       daemonset_pods=daemonset_pods,
+                                       cluster=cluster, session=session)
         self.provisioner = Provisioner(self.store, self.cluster,
                                        self.cloud_provider, self.clock,
+                                       scheduler_factory=scheduler_factory,
                                        recorder=self.recorder,
                                        flight_recorder=self.flightrec,
                                        unavailable=self.unavailable,

@@ -47,6 +47,9 @@ KERNELS = ("combine_compat", "catalog_feasibility", "exist_feasibility",
            "row_splice", "fits_matrix", "offering_compat")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# solves run on server threads (the sidecar's gRPC workers; two replicas in
+# one process can launch at once), so a count moves under this lock
+_LAUNCHES_LOCK = threading.Lock()
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
@@ -71,8 +74,9 @@ class KernelError(RuntimeError):
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 @contextlib.contextmanager
@@ -213,7 +217,8 @@ def _launch(name: str, device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"kt_{name}")(*args, stream)
     _raise_for(name, rc)
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def launcher(name: str, *inputs, **kw):

@@ -230,14 +230,45 @@ def _ordered_union(its_lists) -> "Tuple[List[InstanceType], Dict[str, int]]":
 
 def catalog_cache_token(nodepools, instance_types) -> tuple:
     """Precomputed catalog cache key for callers whose catalog is immutable
-    for their lifetime (a disruption snapshot, the streaming disruption
-    state): hashing 2k instance types per solve is pure overhead when the
-    owner guarantees no in-place mutation. Uses build_problem's union order
-    (_ordered_union; pools with no instance types contribute nothing either
-    way)."""
+    for their lifetime (the sidecar session, a disruption snapshot, the
+    streaming disruption state): hashing 2k instance types per solve is
+    pure overhead when the owner guarantees no in-place mutation. Uses
+    build_problem's union order (_ordered_union; pools with no instance
+    types contribute nothing either way)."""
     catalog, _ = _ordered_union(
         instance_types.get(np_.name, []) for np_ in nodepools)
     return _catalog_cache_key(catalog)
+
+
+def catalog_encoding_pin(token):
+    """Strong reference to the live CatalogEncoding for `token` (None when
+    nothing is cached yet). Multi-tenant sidecar sessions pin their
+    tenant's encoding: vocab IDENTITY gates every ProblemState row cache,
+    so an LRU eviction forced by ANOTHER tenant's catalog traffic would
+    silently demote this tenant's next solve to a cold re-encode.
+
+    The pin holds the encoding's ``device_cache`` too, the catalog's
+    tensors uploaded to each device that solved with it: a pinned session
+    keeps its catalog on the card for as long as it lives. Sessions are
+    bounded by the sidecar's session cap (``KARPENTER_SIDECAR_MAX_SESSIONS``,
+    default 8), so at most that many catalogs stay resident beyond the
+    LRU's own four."""
+    with _CATALOG_CACHE_LOCK:
+        return _CATALOG_CACHE.get(token)
+
+
+def restore_catalog_encoding(token, ce) -> None:
+    """Reinstate a pinned encoding the LRU evicted under other tenants'
+    traffic — the PINNED object, never a re-encode, so vocab identity (and
+    with it every delta cache keyed on it, and its device uploads) survives.
+    May briefly push the cache past its LRU cap; bounded by the sidecar's
+    session cap."""
+    if ce is None:
+        return
+    with _CATALOG_CACHE_LOCK:
+        if token not in _CATALOG_CACHE:
+            _CATALOG_CACHE[token] = ce
+        _CATALOG_CACHE.move_to_end(token)
 
 
 class TensorNodeClaim:

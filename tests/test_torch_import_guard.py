@@ -1,7 +1,9 @@
 """The port stands alone: no module of karpenter_tpu_torch, nor chip_smoke.py,
 imports jax or the JAX package — checked in a fresh interpreter whose
 import system refuses both (tests/conftest.py imports jax into every test
-process, so the check cannot run in-process), and by reading the sources."""
+process, so the check cannot run in-process), which also drives a solve,
+the loops, the operator and a solver sidecar on the CPU, and by reading
+the sources."""
 
 import os
 import re
@@ -85,6 +87,28 @@ op.stop_serving()
 import karpenter_tpu_torch.operator.__main__
 from karpenter_tpu_torch.kube import apiserver, k8s_codec
 assert k8s_codec.pod_from_k8s(k8s_codec.pod_to_k8s(pods[0])).name
+
+# the solver sidecar: a server on the CPU and one session solve through
+# the port's client over a wire-chaos channel (its first attempt dropped
+# and retried), the parity probe byte-identical; then the server stopped
+import grpc
+from karpenter_tpu_torch.sidecar import server as srv
+from karpenter_tpu_torch.sidecar.client import RemoteScheduler, SolverSession
+from karpenter_tpu_torch.sidecar.wire_chaos import ChaosChannel
+from karpenter_tpu_torch.utils.chaos import WireFaultInjector
+server, port = srv.serve(port=0, device="cpu")
+address = f"127.0.0.1:{{port}}"
+injector = WireFaultInjector(seed=3)
+injector.inject_next("drop")
+session = SolverSession(address, parity_every=1, channel=ChaosChannel(
+    grpc.insecure_channel(address, options=srv.GRPC_OPTIONS), injector))
+batch = chip_smoke.bench_pods(90, 9)
+remote = RemoteScheduler(address, [chip_smoke.default_pool()],
+                         {{"default": catalog}}, session=session).solve(batch)
+assert remote.fallback_reason == "" and remote.new_nodeclaims
+assert remote.parity == "byte-identical" and session.retries == 1
+session.close()
+server.stop(None)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "karpenter_tpu"))
 assert not bad, bad

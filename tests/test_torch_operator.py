@@ -1,8 +1,8 @@
 """tests/test_operator.py pointed at the port: operator wiring, options,
 events recorder, metrics, aux controllers. Every operator runs its solves
 on the CPU (``device="cpu"``: the kernels' plain PyTorch versions); the
-port's own operator rules (CUDA unless asked, the remote solver refused)
-are at the end."""
+port's own operator rules (CUDA unless asked, the sidecar backend held to
+the JAX package's) are at the end."""
 
 import time
 
@@ -22,6 +22,7 @@ from karpenter_tpu_torch.utils.clock import FakeClock
 
 from test_torch_support import PORT, factories
 from test_torch_support import device_series_kept  # noqa: F401 (autouse)
+from test_torch_support import sidecar_state_kept  # noqa: F401 (autouse)
 from test_torch_support import tracer_kept  # noqa: F401 (autouse)
 
 make_nodepool = factories(PORT).make_nodepool
@@ -590,14 +591,41 @@ class TestDevice:
         assert op.provisioner.device == torch.device("cpu")
         assert op.disruption.provisioner is op.provisioner
 
-    def test_sidecar_backend_refused_at_construction(self):
+    def test_sidecar_backend_refused_at_construction(self, monkeypatch):
+        """With the solves on the sidecar the disruption loop still solves
+        in this process: with no device named and no card, the operator
+        refuses to start, before the tracer moves."""
+        import torch
         from karpenter_tpu_torch.obs.tracer import TRACER
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         before = (TRACER.enabled, TRACER.capacity, TRACER.watcher)
-        with pytest.raises(ValueError, match="Queue A 4"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
             Operator(options=Options(solver_backend="sidecar",
+                                     solver_address="127.0.0.1:1",
                                      trace_ring=7),
-                     clock=FakeClock(), device="cpu")
+                     clock=FakeClock())
         assert (TRACER.enabled, TRACER.capacity, TRACER.watcher) == before
+
+    def test_sidecar_backend_matches_the_reference_every_step(
+            self, monkeypatch):
+        """The operator over the port's sidecar (both on the CPU) binds
+        every pod of a small batch, and after every step its store equals
+        the JAX operator's over the JAX package's sidecar."""
+        from test_torch_support import (JAX, fresh_registry,
+                                        reset_claim_names, sidecar_server)
+        reset_claim_names(monkeypatch)
+        runs = {}
+        with sidecar_server(JAX) as (_, jax_address), \
+                sidecar_server(PORT) as (_, port_address):
+            for root, address in ((JAX, jax_address), (PORT, port_address)):
+                with fresh_registry(root):
+                    runs[root] = _sidecar_operator_steps(root, address)
+        assert len(runs[PORT]) == len(runs[JAX])
+        for i, (want, got) in enumerate(zip(runs[JAX], runs[PORT])):
+            assert got == want, f"step {i}"
+        claims, bound, nodes = runs[PORT][-1]
+        assert claims and nodes
+        assert all(node for _, node in bound), "a pod was left pending"
 
     def test_operator_configures_the_tracer(self):
         from karpenter_tpu_torch.obs.tracer import TRACER
@@ -608,6 +636,54 @@ class TestDevice:
         op = Operator(options=Options(trace_ring=0), clock=FakeClock(),
                       device="cpu")
         assert not TRACER.enabled
+
+
+def _sidecar_operator_steps(root: str, address: str, steps: int = 7):
+    """``root``'s Operator with ``solver_backend="sidecar"`` against the
+    sidecar at ``address``: a pool and twelve pods (eight plain, four
+    zone-spread), stepped under a fake clock; after each step the claims'
+    instance types, zones and capacity types, each pod's node and the
+    nodes. Pod names restart at 1."""
+    import importlib
+    import itertools
+    F = factories(root)
+    mod = lambda name: importlib.import_module(f"{root}.{name}")  # noqa: E731
+    L = mod("api.labels")
+    saved, F._seq = F._seq, itertools.count(1)
+    try:
+        kw = {"device": "cpu"} if root == PORT else {}
+        op = mod("operator.operator").Operator(
+            mod("operator.options").Options(
+                solver_backend="sidecar", solver_address=address,
+                log_level="error"),
+            clock=mod("utils.clock").FakeClock(), **kw)
+        op.store.create(F.make_nodepool(name="default"))
+        for p in (F.make_pods(8, cpu="500m")
+                  + F.make_pods(4, cpu="1", labels={"app": "s"},
+                                spread=[F.spread_zone(key="app",
+                                                      value="s")])):
+            op.store.create(p)
+    finally:
+        F._seq = saved
+    NodeClaim = mod("api.nodeclaim").NodeClaim
+    objects = mod("api.objects")
+    out = []
+    try:
+        for _ in range(steps):
+            op.step()
+            claims = sorted((nc.metadata.labels.get(L.LABEL_INSTANCE_TYPE),
+                             nc.metadata.labels.get(L.LABEL_TOPOLOGY_ZONE),
+                             nc.metadata.labels.get(
+                                 L.CAPACITY_TYPE_LABEL_KEY))
+                            for nc in op.store.list(NodeClaim))
+            bound = sorted((p.name, p.spec.node_name or "")
+                           for p in op.store.list(objects.Pod))
+            nodes = sorted(n.name for n in op.store.list(objects.Node))
+            out.append((claims, bound, nodes))
+            op.clock.step(1.1)
+    finally:
+        op.solver_session.close()
+    return out
 
 
 class TestCli:

@@ -26,6 +26,7 @@ from karpenter_tpu_torch.utils.clock import FakeClock
 from test_torch_flightrec import record_solve
 from test_torch_support import PORT, factories
 from test_torch_support import device_series_kept  # noqa: F401 (autouse)
+from test_torch_support import sidecar_state_kept  # noqa: F401 (autouse)
 from test_torch_support import tracer_kept  # noqa: F401 (autouse)
 
 
@@ -188,18 +189,38 @@ def test_debug_routes(served, route, expect):
 
 
 def test_sessions_route_waits_for_the_remote_solver(served):
-    """``sessions`` stays None until the sidecar is ported: no route, and
-    the factory answers 404 when handed None."""
+    """``/debug/sessions`` lives with the solver: the operator's own
+    server has no session table (404, and the factory answers 404 when
+    handed None), and the port's sidecar serves its table from
+    ``sessions_snapshot`` once a session has solved there."""
+    from karpenter_tpu_torch.cloudprovider.kwok import \
+        construct_instance_types
     from karpenter_tpu_torch.operator.server import _debug_sessions_factory
+    from karpenter_tpu_torch.sidecar import server as srv
+    from karpenter_tpu_torch.sidecar.client import (RemoteScheduler,
+                                                    SolverSession)
+    from test_torch_support import sidecar_server
     _, metrics, _ = served
     assert _get(f"{metrics}/debug/sessions")[0] == 404
     assert _debug_sessions_factory(None)()[0] == 404
-    table = [{"session": "s1", "tenant": "t", "digest": "d", "rows": 1,
-              "nodes": 2, "templates": 1, "in_flight": 0, "queue_depth": 0,
-              "last_solve_age_s": 0.5, "solves": 3, "resyncs": 0,
-              "dedup_hits": 1}]
-    status, _, body = _debug_sessions_factory(lambda: table)()
-    assert status == 200 and "sessions 1" in body and "tenant=t" in body
+    F = factories(PORT)
+    with sidecar_server(PORT) as (server, address):
+        session = SolverSession(address, tenant="route-t")
+        RemoteScheduler(address, [F.make_nodepool()],
+                        {"default": construct_instance_types()[:8]},
+                        session=session).solve(F.make_pods(3, cpu="500m"))
+        session.close()
+        group = srv.start_serving(0, 0, draining=server.draining)
+        try:
+            status, body = _get(
+                f"http://127.0.0.1:{group.metrics_port}/debug/sessions")
+        finally:
+            group.stop()
+        table = srv.sessions_snapshot()
+    assert status == 200 and body.startswith("sessions 1")
+    assert "tenant=route-t" in body and "solves=1" in body
+    assert len(table) == 1 and table[0]["tenant"] == "route-t"
+    assert table[0]["solves"] == 1 and table[0]["rows"] == 3
 
 
 def test_slo_route_is_json(served):

@@ -892,3 +892,91 @@ class MinValuesReq:
         self.operator = operator
         self.values = tuple(values)
         self.min_values = min_values
+
+
+# -- the solver sidecar, for either package -----------------------------------
+
+@contextmanager
+def sidecar_server(root: str, replica=None, **kw):
+    """A solver sidecar of ``root``'s package on 127.0.0.1 (the port's on
+    the CPU unless ``device`` is given), yielding (server, address). Once
+    the block ends the server is stopped, its replica's sessions dropped
+    and the collector unfrozen as it was: serve() freezes and disables it
+    for the process, and one test worker runs many modules."""
+    import gc
+    srv = importlib.import_module(f"{root}.sidecar.server")
+    if root == PORT:
+        kw.setdefault("device", "cpu")
+    frozen = gc.get_freeze_count()
+    server, port = srv.serve(port=0, replica=replica, **kw)
+    try:
+        yield server, f"127.0.0.1:{port}"
+    finally:
+        server.stop(grace=None)
+        rep = replica if replica is not None else srv.DEFAULT_REPLICA
+        with rep.sessions_lock:
+            rep.sessions.clear()
+        if not frozen:
+            gc.unfreeze()
+
+
+#: the response riders that carry a wall time or a trace id: the rest of a
+#: response frame is a function of the session's state alone
+TIMING_RIDERS = ("queue_wait_ms", "trace_id")
+
+
+def response_content(root: str, frame: bytes) -> tuple:
+    """A SolveSession response frame without its timing riders: (header,
+    blobs), the fallback attribution's seconds dropped too."""
+    wire = importlib.import_module(f"{root}.sidecar.wire")
+    header, blobs = wire.unpack(frame)
+    header = {k: v for k, v in header.items() if k not in TIMING_RIDERS}
+    attribution = dict(header.get("fallback_attribution") or {})
+    for k in ("tensor_seconds", "host_seconds"):
+        attribution.pop(k, None)
+    header["fallback_attribution"] = attribution
+    return header, {k: bytes(v) for k, v in blobs.items()}
+
+
+def keep_responses(session) -> list:
+    """The raw responses a SolverSession (either package's) receives from
+    here on, in order."""
+    kept, call = [], session._call
+
+    def keeping(method, payload):
+        out = call(method, payload)
+        kept.append((method, out))
+        return out
+    session._call = keeping
+    return kept
+
+
+def reset_claim_names(monkeypatch, roots=ROOTS) -> None:
+    """Both packages' claim-name sequences (which name claims wherever
+    results are decoded) restart at 1."""
+    import itertools
+    for root in roots:
+        for name in ("provisioning.scheduler",
+                     "provisioning.tensor_scheduler"):
+            monkeypatch.setattr(importlib.import_module(f"{root}.{name}"),
+                                "claim_name_seq", itertools.count(1))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def sidecar_state_kept():
+    """The process as a module that serves sidecars found it, once its
+    tests end (autouse where a module imports it): serve() freezes and
+    disables the collector for the process, and a server started on a
+    package's default replica leaves its sessions in that module-global
+    table."""
+    import gc
+    enabled, frozen = gc.isenabled(), gc.get_freeze_count()
+    yield
+    for root in ROOTS:
+        srv = importlib.import_module(f"{root}.sidecar.server")
+        with srv.DEFAULT_REPLICA.sessions_lock:
+            srv.DEFAULT_REPLICA.sessions.clear()
+    if enabled:
+        gc.enable()
+    if not frozen:
+        gc.unfreeze()
