@@ -60,9 +60,29 @@ gRPC (karpenter_tpu_torch/sidecar), on the card:
   every step's store equal to the same run on the CPU, beside the tensor
   backend's final store.
 
+Then the fleet simulator (karpenter_tpu_torch/sim), which drives the whole
+operator through a timeline of events on an accelerated clock, on the
+card:
+
+- ``sim_pinned``: the four clips pinned in tests/goldens/sim-regression.json
+  (mixed-day, disruption-wave, service-fleet with its three sidecar
+  replicas, state-chaos with its warm-state corruptions and a device-loss
+  window on an 8-slot mesh over the card), each ledger digest and entry
+  count equal to the JAX package's pin; state-chaos replayed on the CPU
+  too, its injected, detected and healed counts equal to the card's;
+- ``sim_mixed_day``: mixed-day's whole 24 h twice, equal digests and the
+  JAX package's, at least 100x faster than simulated time, one SLO breach
+  with one flight dump that joins the ledger.
+
+And the mesh across processes: ``mesh_multiprocess``, two processes joined
+by ``init_multihost`` (gloo over 127.0.0.1), each with its own CUDA context
+on the card and four slots of one 4x2 mesh, solving the 49,920-pod batch
+cold, each process's decisions equal to the one-process cold solve's.
+
 It checks that the kernels carried every path (launch counts, zeroed just
 before each path and read just after; the sidecar's gRPC worker threads
-launch them too), that nothing fell back to the host
+launch them too, and the mesh processes count their own), that nothing
+fell back to the host
 oracle, and that the decisions equal the same solves, passes and commands
 run on the CPU through the plain versions, or cold solves on the card. The
 two kernels with no caller on any path (fits_matrix, offering_compat) are
@@ -349,6 +369,8 @@ def churn_windows(pods, nodes, span):
 #: seconds from the start of the script to each phase's first line
 PHASE_AT: dict = {}
 _T0 = time.perf_counter()
+#: the checkout this script runs from
+_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def _emit(obj) -> None:
@@ -1531,6 +1553,20 @@ def _uncounted(kernels):
 
 
 @contextlib.contextmanager
+def _plain_kernels(kernels):
+    """Inside the block the feasibility wrappers are their plain versions
+    (which launch and count nothing)."""
+    saved = {name: getattr(kernels, name) for name in FEASIBILITY}
+    for name in FEASIBILITY:
+        setattr(kernels, name, getattr(kernels, f"{name}_plain"))
+    try:
+        yield
+    finally:
+        for name, wrapper in saved.items():
+            setattr(kernels, name, wrapper)
+
+
+@contextlib.contextmanager
 def _restored(module, name: str, value):
     """``module.name`` set back to ``value`` once the block ends."""
     try:
@@ -1955,6 +1991,320 @@ def operator_sidecar_phase(device, record,
             card["digests"][-1] == tensor["digests"][-1],
         "held_equal_at_path_shapes": _held_lines(held)})
     return lines
+
+
+# --------------------------------------------------------------------------
+# the fleet simulator and the mesh across processes on the card
+# --------------------------------------------------------------------------
+
+#: the simulator's pins (the JAX package's, data in the repo)
+SIM_GOLDEN = os.path.join("tests", "goldens", "sim-regression.json")
+#: mixed-day's whole day: its ledger digest and entries from the JAX
+#: package on the CPU (python -c "import jax;
+#: jax.config.update('jax_platforms', 'cpu'); from karpenter_tpu.sim
+#: import FleetSimulator, load_scenario; r = FleetSimulator(load_scenario(
+#: 'karpenter_tpu/sim/scenarios/mixed-day.yaml')).run();
+#: print(r['ledger_digest'], r['ledger_entries'])")
+MIXED_DAY_DIGEST = \
+    "25b1c0ac3920642aa4c6e3132159847d3a662f235f47b7810043c94e0c157bf4"
+MIXED_DAY_ENTRIES = 1390
+#: the simulated-to-wall ratio a whole day must beat (bench.py bench_sim)
+SIM_COMPRESSION = 100
+#: the mesh across processes: two processes, each with half the slots
+MESH_PROCESSES = 2
+#: seconds each mesh process may take, its boot and rendezvous included
+MESH_CHILD_S = 600
+
+
+def _scenario(name: str, clip=None):
+    """A scenario of the port's library, clipped to its first ``clip``
+    simulated seconds."""
+    from karpenter_tpu_torch.sim import load_scenario
+    sc = load_scenario(os.path.join(_ROOT, "karpenter_tpu_torch", "sim",
+                                    "scenarios", name))
+    if clip is not None:
+        clip = min(clip, sc.duration)
+        sc.events = [e for e in sc.events if e.at <= clip]
+        sc.duration = clip
+    return sc
+
+
+def _ladder() -> dict:
+    """The device-loss ladder's counters so far."""
+    from karpenter_tpu_torch.metrics.registry import STATE_AUDIT
+    return {oc: STATE_AUDIT.value({"layer": "device", "outcome": oc})
+            for oc in ("killed", "carve", "single", "readmitted")}
+
+
+def _chaos_counts(sim, ladder: dict) -> dict:
+    """What a chaos replay injected, what its auditor detected, and what
+    was healed: each detected fault's layer quarantined and rebuilt cold
+    in the pass that found it, and each pass that met a killed slot
+    re-placed by the ladder on a carve or a single slot (``ladder``: its
+    counters before the replay)."""
+    after = _ladder()
+    device = {k: after[k] - ladder[k] for k in after}
+    detected = {k.split(":", 1)[1]: v
+                for k, v in sim.state_auditor.stats.items()
+                if k.startswith("corrupt:")}
+    return {"injected": len(sim.state_corruptor.injected),
+            "injected_by_layer": dict(sim.state_corruptor.counts),
+            "detected": sum(detected.values()),
+            "detected_by_layer": detected,
+            "healed": sum(detected.values()) + device["carve"]
+            + device["single"],
+            "ladder": device,
+            "kill_hits": {str(k): v
+                          for k, v in sim.device_killer.counts.items()}}
+
+
+def _simulate(sc, device, **kw) -> tuple:
+    """(simulator, report, seconds) of one replay on ``device``."""
+    from karpenter_tpu_torch.sim import FleetSimulator
+    t0 = time.perf_counter()
+    sim = FleetSimulator(sc, device=device, **kw)
+    report = sim.run()
+    return sim, report, time.perf_counter() - t0
+
+
+def sim_pinned_phase(device, record) -> list:
+    """The four pinned clips of tests/goldens/sim-regression.json replayed
+    on ``device``, each ledger digest and entry count equal to the pin,
+    K1-K3 held at every launch shape; then state-chaos's clip once more on
+    the CPU, its injected, detected and healed counts non-zero and equal
+    to the card's. ``record`` is called just after the card's replays."""
+    from karpenter_tpu_torch.ops import kernels
+    with open(os.path.join(_ROOT, SIM_GOLDEN)) as f:
+        pins = json.load(f)["pins"]
+    lines, chaos = [], {}
+    _reset_counts(kernels)
+    with _held_at_each_shape(kernels) as held:
+        for pin in pins:
+            name, clip = pin["scenario"], pin["clip_seconds"]
+            ladder = _ladder()
+            sim, report, s = _simulate(_scenario(name, clip), device)
+            assert report["ledger_digest"] == pin["ledger_digest"], \
+                f"sim_pinned {name}: the ledger digest is not the pin's"
+            assert report["ledger_entries"] == pin["ledger_entries"], name
+            if sim.state_corruptor is not None:
+                chaos[name] = (clip, _chaos_counts(sim, ladder))
+            lines.append({
+                "phase": "sim_pinned", "scenario": name, "clip_s": clip,
+                "device": device, "s": s, "wall_s": report["wall_seconds"],
+                "compression": report["compression"],
+                "solver": report["solver"],
+                "events_applied": report["events_applied"],
+                "ledger_entries": report["ledger_entries"],
+                "ledger_digest": report["ledger_digest"],
+                "digest_equals_pin": True})
+    launches = record()
+    assert chaos, "no pinned clip injected state chaos"
+    for name, (clip, card) in chaos.items():
+        ladder = _ladder()
+        sim, _, cpu_s = _simulate(_scenario(name, clip), "cpu")
+        cpu = _chaos_counts(sim, ladder)
+        assert card["injected"] and card["detected"] and card["healed"], \
+            card
+        assert card["ladder"]["killed"] and card["kill_hits"], card
+        assert card == cpu, \
+            f"sim_pinned {name}: the card's chaos {card} != the CPU's {cpu}"
+        next(x for x in lines if x["scenario"] == name).update(
+            chaos=card, chaos_equals_cpu=True, cpu_s=cpu_s)
+    for name in FEASIBILITY:
+        assert launches[name] > 0, f"sim_pinned: {name} never launched"
+        assert any(k[0] == name for k in held), name
+    lines.append({"phase": "sim_pinned_launches",
+                  "launches": {k: v for k, v in launches.items() if v},
+                  "held_equal_at_path_shapes": _held_lines(held)})
+    return lines
+
+
+def sim_mixed_day_phase(device, record) -> list:
+    """mixed-day's whole 24 h twice on ``device``, as bench.py's bench_sim
+    holds it: equal digests, both MIXED_DAY_DIGEST; a compression of at
+    least SIM_COMPRESSION; exactly one SLO breach with exactly one flight
+    dump, whose records join the ledger's solves by trace id. K1-K3 held
+    at every launch shape; ``record`` is called just after the runs."""
+    import tempfile
+    from karpenter_tpu_torch.ops import kernels
+    lines, digests = [], []
+    _reset_counts(kernels)
+    with _held_at_each_shape(kernels) as held:
+        for run in range(2):
+            with tempfile.TemporaryDirectory() as dumps:
+                sim, report, s = _simulate(_scenario("mixed-day.yaml"),
+                                           device, flightrec_dir=dumps)
+                files = sorted(os.listdir(dumps))
+                records = [json.loads(line)
+                           for name in files
+                           for line in open(os.path.join(dumps, name))
+                           if line.strip()]
+            digests.append(report["ledger_digest"])
+            breaches = report["breaches"]
+            assert len(breaches) == 1 and len(files) == 1, \
+                f"sim_mixed_day: {len(breaches)} breaches, {files}"
+            trace_id = breaches[0]["trace_id"]
+            solves = {e.get("trace_id") for e in sim.ledger.entries
+                      if e["kind"] == "solve"}
+            assert records and trace_id in solves and all(
+                r["meta"]["trace_id"] == trace_id for r in records), \
+                "sim_mixed_day: the dump does not join the ledger"
+            assert report["compression"] >= SIM_COMPRESSION, \
+                f"sim_mixed_day: compression {report['compression']}"
+            lines.append({
+                "phase": "sim_mixed_day", "run": run, "device": device,
+                "s": s, "sim_s": report["sim_seconds"],
+                "wall_s": report["wall_seconds"],
+                "compression": report["compression"],
+                "solver": report["solver"],
+                "time_to_schedule": report["time_to_schedule"],
+                "cost": report["cost"], "churn": report["churn"],
+                "attribution": report["attribution"],
+                "breaches": 1, "dump_records": len(records),
+                "dump_joins_ledger": True,
+                "ledger_entries": report["ledger_entries"],
+                "ledger_digest": report["ledger_digest"]})
+    launches = record()
+    assert digests[0] == digests[1], "sim_mixed_day: the runs differ"
+    assert digests[0] == MIXED_DAY_DIGEST, \
+        f"sim_mixed_day: {digests[0]} is not the JAX package's day"
+    assert lines[0]["ledger_entries"] == MIXED_DAY_ENTRIES
+    for name in FEASIBILITY:
+        assert launches[name] > 0, f"sim_mixed_day: {name} never launched"
+        assert any(k[0] == name for k in held), name
+    lines.append({"phase": "sim_mixed_day_launches",
+                  "digest_equals_reference": True, "deterministic": True,
+                  "launches": {k: v for k, v in launches.items() if v},
+                  "held_equal_at_path_shapes": _held_lines(held)})
+    return lines
+
+
+def mesh_child(rank: int, port: int, out: str, device: str = DEVICE,
+               n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
+               n_its: int = N_ITS) -> None:
+    """One process of the mesh_multiprocess phase: joins the fleet over
+    gloo on 127.0.0.1, builds the mesh of both processes' slots (half of
+    MESH_SLOTS each, over this process's own ``device``), and solves the
+    batch cold through it (the north-star's unless sizes are given), a
+    warm-up and REPEATS - 1 timed solves, each kernel held at every launch
+    shape. Writes its digest, times, launches and holds to ``out`` as
+    JSON."""
+    import torch
+    from karpenter_tpu_torch.cloudprovider.kwok import construct_catalog
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    from karpenter_tpu_torch.ops import kernels
+    from karpenter_tpu_torch.parallel import mesh as tmesh
+    from karpenter_tpu_torch.provisioning import tensor_scheduler as ts_mod
+    t0 = time.perf_counter()
+    assert tmesh.init_multihost(f"127.0.0.1:{port}", MESH_PROCESSES,
+                                rank) == MESH_PROCESSES
+    mesh = tmesh.make_solver_mesh(
+        devices=[torch.device(device)] * (MESH_SLOTS // MESH_PROCESSES))
+    assert tmesh.is_multiprocess(mesh), repr(mesh)
+    joined_s = time.perf_counter() - t0
+    catalog, pool, pods = construct_catalog(n_its), default_pool(), \
+        bench_pods(n_pods, n_deploys)
+    kernels.reset_launches()
+    with _held_at_each_shape(kernels) as held:
+        solves = [_solve(ts_mod, pool, catalog, pods, (), None, mesh=mesh)
+                  for _ in range(REPEATS)]
+        launches = dict(kernels.LAUNCHES)
+    _, results, _ = min(solves[1:], key=lambda x: x[2])
+    digests = {json.dumps(_local_digest(r, pods), sort_keys=True)
+               for _, r, _ in solves}
+    assert len(digests) == 1, "the fleet's solves differ from each other"
+    with open(out, "w") as f:
+        json.dump({"rank": rank, "mesh": repr(mesh), "pods": len(pods),
+                   "instance_types": len(catalog),
+                   "slots": [[s.id, s.process_index, str(s.device)]
+                             for s in mesh.devices.flat],
+                   "joined_s": joined_s, "s": [x[2] for x in solves],
+                   "best_s": min(x[2] for x in solves[1:]),
+                   "spans_ms": _top_spans(TRACER.last()),
+                   "digest": _local_digest(results, pods),
+                   "launches": launches, "held": _held_lines(held)}, f)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_multiprocess_phase(want: dict, single_s: float,
+                            device: str = DEVICE, **sizes) -> tuple:
+    """The north-star cold solve (``sizes``: mesh_child's, to cut it) on
+    a mesh that spans MESH_PROCESSES processes (``init_multihost`` over
+    gloo on 127.0.0.1; each process its own CUDA context on the card, half
+    the slots), each process's digest equal to the single-process cold
+    solve's (``want``). Returns (line, the processes' launches summed,
+    their holds)."""
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json")
+                for r in range(MESH_PROCESSES)]
+        logs = [tempfile.TemporaryFile(mode="w+", dir=tmp)
+                for _ in outs]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.mesh_child({r}, {port}, "
+             f"{outs[r]!r}, {device!r}, **{sizes!r})"], cwd=_ROOT, env=env, stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(MESH_PROCESSES)]
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(1.0, t0 + MESH_CHILD_S
+                                      - time.perf_counter()))
+            for r, proc in enumerate(procs):
+                assert proc.returncode == 0, \
+                    f"mesh process {r} exited with {proc.returncode}"
+            wall_s = time.perf_counter() - t0
+            children = []
+            for path in outs:
+                with open(path) as f:
+                    children.append(json.load(f))
+        except BaseException:
+            for r, (proc, log) in enumerate(zip(procs, logs)):
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+                log.seek(0)
+                print(f"mesh process {r}:\n{log.read()[-8000:]}",
+                      file=sys.stderr, flush=True)
+            raise
+        finally:
+            for log in logs:
+                log.close()
+    want = json.loads(json.dumps(want))
+    for c in children:
+        assert c["digest"] == want, \
+            f"mesh process {c['rank']}: != the single-process cold solve"
+    launches = {name: sum(c["launches"][name] for c in children)
+                for name in children[0]["launches"]}
+    held = {}
+    for c in children:
+        for h in c["held"]:
+            held[(h["name"], tuple(map(tuple, h["shapes"])))] = \
+                h["max_abs_err"]
+    line = {"phase": "mesh_multiprocess", "processes": MESH_PROCESSES,
+            "mesh": children[0]["mesh"], "slots": children[0]["slots"],
+            "pods": children[0]["pods"],
+            "instance_types": children[0]["instance_types"],
+            "wall_s": wall_s,
+            "joined_s": [c["joined_s"] for c in children],
+            "best_s": [c["best_s"] for c in children],
+            "s": [c["s"] for c in children],
+            "single_process_best_s": single_s,
+            "spans_ms": [c["spans_ms"] for c in children],
+            "digest_equals_single_process": True,
+            "launches": {k: v for k, v in launches.items() if v},
+            "launches_by_process": [
+                {k: v for k, v in c["launches"].items() if v}
+                for c in children],
+            "held_equal_at_path_shapes": _held_lines(held)}
+    return line, launches, held
 
 
 # --------------------------------------------------------------------------
@@ -2544,6 +2894,22 @@ def main() -> None:
     slot["device_ms"] = _device_ms(prof, "combine_compat")
     rows["combine_compat"]["mesh_slot"] = slot
     _emit({"phase": "k1_at_mesh_slot", **slot})
+    # B4 as one program: the 4x2 mesh's whole precompute of the problem
+    # with nodes (uploads cached; every slot launched, fetched and
+    # assembled), held against and timed beside the same with each
+    # kernel's plain version on the same CUDA tensors; no launch counts
+    from karpenter_tpu_torch.parallel.mesh import sharded_precompute
+    b4 = lambda: sharded_precompute(problem_x, mesh8)  # noqa: E731
+    with _uncounted(kernels):
+        b4_out, b4_ms = b4(), _time_ms(b4, runs=5, warmup=1)
+        with _plain_kernels(kernels):
+            b4_plain, b4_plain_ms = b4(), _time_ms(b4, runs=5, warmup=1)
+    b4_equal = all(np.array_equal(v, getattr(b4_plain, f))
+                   for f, v in vars(b4_out).items())
+    assert b4_equal, "B4: the sharded precompute differs from its plain " \
+                     "version"
+    _emit({"phase": "b4_sharded_precompute", "mesh": repr(mesh8),
+           "ms": b4_ms, "plain_ms": b4_plain_ms, "equal": b4_equal})
 
     # 8. warm passes through one ProblemState on the card, each held to a
     # cold solve of the same inputs; the nodes are a fresh copy that the
@@ -2770,11 +3136,36 @@ def main() -> None:
     for line in operator_sidecar_phase(DEVICE, record_operator_sidecar):
         _emit(line)
 
+    # 14g. the fleet simulator on the card: the four pinned clips (the JAX
+    # package's digests), then mixed-day's whole day twice
+    def recorder(path: str):
+        def record_path() -> dict:
+            record(path)
+            return paths[path]
+        return record_path
+    with _process_state_kept():
+        sim_lines = sim_pinned_phase(DEVICE, recorder("sim_pinned"))
+    for line in sim_lines:
+        _emit(line)
+    with _process_state_kept():
+        sim_lines = sim_mixed_day_phase(DEVICE, recorder("sim_mixed_day"))
+    for line in sim_lines:
+        _emit(line)
+
+    # 14h. the north-star cold solve on a mesh across two processes, each
+    # process's decisions equal to the single-process cold solve's; their
+    # launches are counted in the processes and summed here
+    line, paths["mesh_multiprocess"], _ = mesh_multiprocess_phase(
+        _local_digest(runs["cold"], pods), best_s["cold"])
+    _emit(line)
+
     # 15. every path launched the kernels it runs; the table counts them
     # all (B5 has no caller on any path: its launches stay 0)
     expect = {"operator": FEASIBILITY, "sidecar": FEASIBILITY,
               "sidecar_fleet": FEASIBILITY,
               "operator_sidecar": FEASIBILITY,
+              "sim_pinned": FEASIBILITY, "sim_mixed_day": FEASIBILITY,
+              "mesh_multiprocess": FEASIBILITY[:2],
               "solve": FEASIBILITY, "solve_mesh_1x1": FEASIBILITY,
               "solve_mesh_4x2": FEASIBILITY,
               "warm_churn": FEASIBILITY,

@@ -41,8 +41,14 @@ stragglers coalesce. Decisions may differ from the sequential oracle only in
 remainder-node composition (DEVIATIONS 22); the exact global pack remains the
 default everywhere.
 
-Every mesh is single-process here: a fleet of processes joined by
-``torch.distributed`` is not carried (``init_multihost`` raises for one).
+A mesh may also span processes: after ``init_multihost`` joins a fleet
+(``torch.distributed`` over gloo), ``make_solver_mesh`` gathers every
+process's device list once and gives each slot the index of the process
+that owns it. Every process holds the same problem, as every reference
+scheduler replica sees the same apiserver, so each one uploads and launches
+only its own slots; ``sharded_precompute`` then gathers the slots' host
+results over gloo (CPU tensors: gloo's CUDA collectives are not relied on),
+and ``sharded_precompute_local`` keeps only this process's rows.
 
 Reference analog: none — the Go scheduler is single-threaded per solve
 (scheduler.go:207-265); sharding the feasibility precompute and the pack is
@@ -77,7 +83,9 @@ _CATALOG_SHARD_MIN = 64
 @dataclasses.dataclass(frozen=True)
 class Slot:
     """One cell of a solver mesh: its id (distinct within the mesh, the key
-    of its per-device breaker) and the torch device it launches on."""
+    of its per-device breaker), the torch device it launches on, and the
+    index of the process that owns it (``device`` names a device of that
+    process)."""
     id: int
     device: torch.device
     process_index: int = 0
@@ -125,11 +133,23 @@ def _grid(slots: List[Slot]) -> Mesh:
     return Mesh(grid)
 
 
+def _fleet():
+    """(this process's index, process count): (0, 1) outside a fleet."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def make_solver_mesh(n_devices: Optional[int] = None,
                      devices=None) -> Mesh:
     """A (pods_groups, catalog) mesh over ``devices`` (default: every CUDA
     device). ``devices`` may repeat a device: the slots still get distinct
-    ids 0..n-1 and share that device."""
+    ids 0..n-1 and share that device. In a fleet joined by
+    ``init_multihost`` every process calls this with its own local
+    devices, and the mesh spans them all in process order (one gather of
+    the device lists); ``n_devices`` keeps the first n of the whole
+    list."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -137,10 +157,18 @@ def make_solver_mesh(n_devices: Optional[int] = None,
                 "solver mesh over other devices")
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
-    devices = [torch.device(d) for d in devices]
+    local = [str(torch.device(d)) for d in devices]
+    _, world = _fleet()
+    if world > 1:
+        lists: list = [None] * world
+        torch.distributed.all_gather_object(lists, local)
+    else:
+        lists = [local]
+    owned = [(proc, torch.device(d))
+             for proc, names in enumerate(lists) for d in names]
     if n_devices is not None:
-        devices = devices[:n_devices]
-    return _grid([Slot(i, d) for i, d in enumerate(devices)])
+        owned = owned[:n_devices]
+    return _grid([Slot(i, d, proc) for i, (proc, d) in enumerate(owned)])
 
 
 def mesh_cache_key(mesh: Mesh) -> tuple:
@@ -149,14 +177,18 @@ def mesh_cache_key(mesh: Mesh) -> tuple:
     are interchangeable, so keying caches on this (not the Mesh) means a
     recreated mesh reuses every upload."""
     return (tuple(int(s.id) for s in mesh.devices.flat),
-            tuple(str(s.device) for s in mesh.devices.flat),
+            tuple(f"{s.process_index}/{s.device}" for s in mesh.devices.flat),
             tuple(int(x) for x in mesh.devices.shape))
 
 
 def _distinct_devices(slots) -> List[torch.device]:
+    """The distinct devices of ``slots`` that this process owns: a process
+    uploads to and launches on its own slots only."""
+    me, _ = _fleet()
     out: Dict[str, torch.device] = {}
     for s in slots:
-        out.setdefault(str(s.device), s.device)
+        if s.process_index == me:
+            out.setdefault(str(s.device), s.device)
     return list(out.values())
 
 
@@ -251,7 +283,8 @@ class _MeshPlacer(binpack.ArgPlacer):
     host numpy (each slot uploads its own row block), the catalog side is
     uploaded once per column block to each slot's device and cached under a
     mesh-identity slot, and the existing-node side is uploaded once per
-    distinct device."""
+    distinct device; in a mesh across processes, to this process's own
+    slots' devices only."""
 
     def __init__(self, mesh: Mesh, Tp: int):
         self.mesh = mesh
@@ -377,9 +410,9 @@ class _MeshPlacer(binpack.ArgPlacer):
 
 
 def is_multiprocess(mesh: Mesh) -> bool:
-    """True when the mesh's slots span more than this process — never, for
-    a mesh of this package: a multi-process fleet is not carried."""
-    return any(s.process_index != 0 for s in mesh.devices.flat)
+    """True when the mesh's slots span more than this process."""
+    me, _ = _fleet()
+    return any(s.process_index != me for s in mesh.devices.flat)
 
 
 def _sharded_dispatch(p: binpack.PackProblem, mesh: Mesh):
@@ -400,11 +433,17 @@ def _sharded_dispatch(p: binpack.PackProblem, mesh: Mesh):
     padded, G, T = pad_problem(p, g_mult, t_mult, pad_catalog=not cached)
     # a CUDA error while uploading (or splicing) is a KernelError, which the
     # ladder re-raises instead of re-placing the solve
-    cuda = [s.device for s in mesh.devices.flat if s.device.type == "cuda"]
-    with kernels.device_failures(cuda[0] if cuda
-                                 else mesh.devices.flat[0].device):
+    with kernels.device_failures(_failure_device(mesh)):
         args, statics = binpack.device_args(padded, placer)
     return args, statics, padded, G, T, Tp
+
+
+def _failure_device(mesh: Mesh) -> torch.device:
+    """The device a CUDA error of this process's share of a mesh dispatch
+    is attributed to: its first CUDA device, else its first device."""
+    devices = _distinct_devices(mesh.devices.flat)
+    cuda = [d for d in devices if d.type == "cuda"]
+    return (cuda or devices)[0]
 
 
 def _slot_layout(M: int, Gb: int, Tb: int, Z: int, N: int, has_exist: bool):
@@ -421,9 +460,9 @@ def _slot_layout(M: int, Gb: int, Tb: int, Z: int, N: int, has_exist: bool):
 
 
 def _launch_slots(mesh: Mesh, args, statics, Gp: int, Tp: int):
-    """Launch K1 + K2 on every slot (and K3 once per pods_groups row) on
-    the slot's own device, without fetching anything. Returns
-    [(r, c, device, packed uint8 outputs on the device)]."""
+    """Launch K1 + K2 on every slot this process owns (and K3 once per
+    pods_groups row) on the slot's own device, without fetching anything.
+    Returns [(r, c, device, packed uint8 outputs on the device)]."""
     group, template, group_req, daemon, template_its = (
         args[0], args[1], args[3], args[4], args[6])
     tol_template, exist, exist_avail, tol_exist = args[12:16]
@@ -438,7 +477,10 @@ def _launch_slots(mesh: Mesh, args, statics, Gp: int, Tp: int):
     per_dev: Dict[str, tuple] = {}
     per_row: Dict[Tuple[int, str], tuple] = {}
     launched = []
+    me, _ = _fleet()
     for (r, c), slot in np.ndenumerate(mesh.devices):
+        if slot.process_index != me:
+            continue
         dev = slot.device
         dkey = str(dev)
         rows = slice(r * Gb, (r + 1) * Gb)
@@ -466,27 +508,75 @@ def _launch_slots(mesh: Mesh, args, statics, Gp: int, Tp: int):
     return launched
 
 
-def _assemble(launched, mesh: Mesh, padded: binpack.PackProblem,
+def _fetch(launched) -> list:
+    """One device-to-host copy per launched slot: [(r, c, host bytes)]."""
+    out = []
+    for r, c, dev, flat in launched:
+        with kernels.device_failures(dev):
+            out.append((r, c, flat.cpu().numpy()))
+    return out
+
+
+def _gather_slots(mesh: Mesh, fetched, layout) -> list:
+    """Every slot's host bytes on every process of a fleet, through one
+    gloo all-gather of CPU tensors: each process sends its own slots' bytes
+    joined in grid order, padded to the largest share, and every process
+    can split every share because every process holds the same problem
+    (``layout(c)`` is a slot's output layout)."""
+    def nbytes(c: int) -> int:
+        return sum(int(np.prod(shape)) * np.dtype(dt).itemsize
+                   for shape, dt, _ in layout(c))
+    _, world = _fleet()
+    owned: List[list] = [[] for _ in range(world)]
+    for (r, c), slot in np.ndenumerate(mesh.devices):
+        owned[slot.process_index].append((r, c))
+    sizes = [sum(nbytes(c) for _, c in cells) for cells in owned]
+    mine = np.concatenate([h for _, _, h in fetched]) if fetched \
+        else np.zeros(0, np.uint8)
+    buf = torch.zeros(max(sizes), dtype=torch.uint8)
+    buf[:mine.size] = torch.from_numpy(mine)
+    shares = [torch.empty_like(buf) for _ in range(world)]
+    torch.distributed.all_gather(shares, buf)
+    out = []
+    for cells, share in zip(owned, shares):
+        host, off = share.numpy(), 0
+        for r, c in cells:
+            out.append((r, c, host[off:off + nbytes(c)]))
+            off += nbytes(c)
+    return out
+
+
+def _slot_layouts(mesh: Mesh, padded: binpack.PackProblem, Gp: int,
+                  Tp: int, has_exist: bool):
+    """A slot's output layout by its catalog column (K3's outputs ride
+    the first column's slots)."""
+    g, t = mesh.devices.shape
+    M = padded.daemon_overhead.shape[0]
+    Z = padded.zone_values.shape[0]
+    N = padded.exist_avail.shape[0] if has_exist else 1
+    return lambda c: _slot_layout(M, Gp // g, Tp // t, Z, N,
+                                  has_exist and c == 0)
+
+
+def _assemble(fetched, mesh: Mesh, padded: binpack.PackProblem,
               Gp: int, Tp: int, has_exist: bool):
-    """One device-to-host copy per slot, then the padded global arrays in
-    precompute_kernel's order."""
+    """The padded global arrays in precompute_kernel's order from the
+    slots' host bytes; the rows of slots not in ``fetched`` stay zero."""
     g, t = mesh.devices.shape
     Gb, Tb = Gp // g, Tp // t
     M = padded.daemon_overhead.shape[0]
     Z = padded.zone_values.shape[0]
     N = padded.exist_avail.shape[0] if has_exist else 1
     pack_dtype, Wz = kernels.zone_pack_layout(Z)
+    layout = _slot_layouts(mesh, padded, Gp, Tp, has_exist)
     compat_tm = np.zeros((M, Gp), dtype=bool)
     okz = np.zeros((Gp, M, Tp, Wz), dtype=pack_dtype)
     ppn = np.zeros((Gp, M, Tp), dtype=np.int16)
     zone_adm = np.zeros((Gp, M, Z), dtype=bool)
     exist_ok = np.zeros((Gp, N), dtype=bool)
     exist_cap = np.zeros((Gp, N), dtype=np.int32)
-    for r, c, dev, flat in launched:
-        with kernels.device_failures(dev):
-            host = flat.cpu().numpy()
-        parts = binpack._split_packed(
-            host, _slot_layout(M, Gb, Tb, Z, N, has_exist and c == 0))
+    for r, c, host in fetched:
+        parts = binpack._split_packed(host, layout(c))
         rows = slice(r * Gb, (r + 1) * Gb)
         cols = slice(c * Tb, (c + 1) * Tb)
         okz[rows, :, cols] = parts[1]
@@ -538,11 +628,14 @@ def _mesh_stats(mesh: Mesh, statics, padded: binpack.PackProblem,
         cost=(ops, accessed, max(per_dev.values())))
 
 
-def _run_sharded(p: binpack.PackProblem, mesh: Mesh):
-    """Place, launch every slot, fetch every slot. Returns (raw outputs,
-    padded, G, T). With tracing on, the launches (device.dispatch) and the
-    wait for the devices (device.execute) get spans of their own,
-    attributed to the sharded launch in obs.device.DEVICE_TIME."""
+def _run_sharded(p: binpack.PackProblem, mesh: Mesh, gather: bool = True):
+    """Place, launch every slot this process owns, fetch them. Returns
+    (raw outputs, padded, G, T). In a fleet, ``gather`` brings every
+    process's slots to every process; without it the rows of other
+    processes' slots stay zero. With tracing on, the launches
+    (device.dispatch) and the wait for the devices (device.execute) get
+    spans of their own, attributed to the sharded launch in
+    obs.device.DEVICE_TIME."""
     from ..obs.tracer import TRACER
     args, statics, padded, G, T, Tp = _sharded_dispatch(p, mesh)
     Gp = padded.group_req.shape[0]
@@ -558,12 +651,16 @@ def _run_sharded(p: binpack.PackProblem, mesh: Mesh):
             launched = _launch_slots(mesh, args, statics, Gp, Tp)
             dispatch_s = timer.launched()
         with TRACER.span("device.execute", executable=st.label):
-            cuda = [d for d in devices if d.type == "cuda"]
-            with kernels.device_failures(cuda[0] if cuda else devices[0]):
+            with kernels.device_failures(_failure_device(mesh)):
                 device_s = timer.wait()
         DEVICE_TIME.record(st, dispatch_s, device_s)
+    has_exist = statics["has_exist"]
     with TRACER.span("device.fetch"):
-        raw = _assemble(launched, mesh, padded, Gp, Tp, statics["has_exist"])
+        fetched = _fetch(launched)
+        if gather and is_multiprocess(mesh):
+            fetched = _gather_slots(
+                mesh, fetched, _slot_layouts(mesh, padded, Gp, Tp, has_exist))
+        raw = _assemble(fetched, mesh, padded, Gp, Tp, has_exist)
     return raw, padded, G, T
 
 
@@ -601,7 +698,11 @@ def sharded_precompute(p: binpack.PackProblem, mesh: Mesh
     per slot on each slot's device, gathers + un-pads the result. Bit-
     identical to binpack.precompute for any mesh: each output element is
     computed by the same kernel from the same inputs, whichever slot owns
-    it."""
+    it. Over a mesh that spans processes every process launches its own
+    slots and receives the FULL result (one gloo all-gather of the slots'
+    host bytes), so every process reaches the same decisions with no
+    leader, as the reference's scheduler replicas converge through the
+    shared apiserver."""
     raw, padded, G, T = _run_sharded(p, mesh)
     return _unpad_tensors(raw, padded, G, T)
 
@@ -609,10 +710,23 @@ def sharded_precompute(p: binpack.PackProblem, mesh: Mesh
 def sharded_precompute_local(p: binpack.PackProblem, mesh: Mesh
                              ) -> "Tuple[binpack.PackTensors, list]":
     """The sharded precompute with ONLY this process's group rows, for
-    callers that post-process per group row. Returns ``(tensors, spans)``
-    where ``spans`` is local_result_slice()'s [start, stop) group-row list.
-    Every mesh here is single-process, so the spans cover every group."""
-    raw, padded, G, T = _run_sharded(p, mesh)
+    callers that post-process per group row: no gather between processes.
+    Returns ``(tensors, spans)`` where ``spans`` is local_result_slice()'s
+    [start, stop) group-row list; tensor rows outside the spans are zeros
+    and must not be read. Every pods_groups row this process holds a slot
+    of must be wholly its own (true of make_solver_mesh grids, where a
+    process's slots tile whole rows); raises ValueError otherwise rather
+    than returning rows with holes."""
+    me, _ = _fleet()
+    for r in range(mesh.devices.shape[0]):
+        row_procs = {s.process_index for s in mesh.devices[r]}
+        if me in row_procs and row_procs != {me}:
+            raise ValueError(
+                f"pods_groups-axis row {r} spans processes "
+                f"{sorted(row_procs)}; local fetch needs catalog-"
+                "complete rows — use sharded_precompute() (replicated "
+                "gather) instead")
+    raw, padded, G, T = _run_sharded(p, mesh, gather=False)
     tensors = _unpad_tensors(raw, padded, G, T)
     Gp = padded.group_req.shape[0]
     spans = [(start, min(stop, G))
@@ -935,20 +1049,52 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None,
                    auto: bool = False) -> int:
-    """Join a multi-host solver fleet; returns the process count. A single
-    host needs no service and gets 1. A fleet of several processes
-    (``torch.distributed``) is not carried yet, and asking for one raises
-    NotImplementedError."""
-    env_np = os.environ.get("WORLD_SIZE")
-    if num_processes is None and env_np is not None:
-        num_processes = int(env_np)
-    wants_fleet = (auto or coordinator_address is not None
-                   or process_id is not None
-                   or (num_processes is not None and num_processes != 1))
-    if not wants_fleet:
-        return 1
-    raise NotImplementedError(
-        "a multi-process solver fleet (torch.distributed) is not ported")
+    """Join a multi-process solver fleet through ``torch.distributed``
+    (gloo over TCP), the analog of the reference's NCCL/MPI bootstrap.
+    Idempotent; returns the process count.
+
+    Each process contributes its local devices; ``make_solver_mesh()``
+    then builds the (pods_groups x catalog) mesh over every process's
+    slots, and the sharded precompute launches each slot on its owner.
+    The kernels have no cross-shard contractions, so the only traffic is
+    the result gather (one all-gather of packed host bytes a solve).
+
+    Parameters default to torch's own environment: ``MASTER_ADDR`` and
+    ``MASTER_PORT`` (the coordinator, ``host:port``), ``WORLD_SIZE`` and
+    ``RANK``. ``auto=True`` hands the whole bootstrap to torch's
+    ``env://``. Call before any other collective; a process that is
+    evidently alone (no coordinator, size or rank given, or a size of 1)
+    starts no service and gets 1."""
+    env = os.environ
+    if num_processes is None and "WORLD_SIZE" in env:
+        num_processes = int(env["WORLD_SIZE"])
+    if process_id is None and "RANK" in env:
+        process_id = int(env["RANK"])
+    if coordinator_address is None and "MASTER_ADDR" in env:
+        coordinator_address = (f"{env['MASTER_ADDR']}:"
+                               f"{env.get('MASTER_PORT', '29500')}")
+    bootstrap_available = (auto or coordinator_address is not None
+                           or num_processes is not None
+                           or process_id is not None)
+    if num_processes == 1 or not bootstrap_available:
+        return 1  # explicitly (or evidently) one process: no service
+    dist = torch.distributed
+    if not dist.is_initialized():
+        if auto and coordinator_address is None:
+            dist.init_process_group("gloo", init_method="env://")
+        elif coordinator_address is None or num_processes is None \
+                or process_id is None:
+            raise ValueError(
+                "a solver fleet needs a coordinator address, a process "
+                "count and this process's id (arguments, or MASTER_ADDR / "
+                "MASTER_PORT, WORLD_SIZE and RANK); got "
+                f"{coordinator_address!r}, {num_processes!r}, "
+                f"{process_id!r}")
+        else:
+            dist.init_process_group(
+                "gloo", init_method=f"tcp://{coordinator_address}",
+                world_size=int(num_processes), rank=int(process_id))
+    return dist.get_world_size()
 
 
 def local_result_slice(mesh: Mesh, n_groups: int,
@@ -961,7 +1107,7 @@ def local_result_slice(mesh: Mesh, n_groups: int,
     them to a single [min, max) range would overlap other hosts' slices and
     double-pack their groups."""
     if process_index is None:
-        process_index = 0
+        process_index, _ = _fleet()
     n_shards = mesh.shape[PODS_GROUPS_AXIS]
     per = math.ceil(n_groups / n_shards)
     local_rows = sorted(

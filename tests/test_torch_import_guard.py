@@ -2,8 +2,8 @@
 imports jax or the JAX package — checked in a fresh interpreter whose
 import system refuses both (tests/conftest.py imports jax into every test
 process, so the check cannot run in-process), which also drives a solve,
-the loops, the operator and a solver sidecar on the CPU, and by reading
-the sources."""
+the loops, the operator, a solver sidecar and the fleet simulator on the
+CPU, and by reading the sources."""
 
 import os
 import re
@@ -109,6 +109,24 @@ assert remote.fallback_reason == "" and remote.new_nodeclaims
 assert remote.parity == "byte-identical" and session.retries == 1
 session.close()
 server.stop(None)
+
+# the fleet simulator: a short timeline with a state corruption and a
+# device-loss window on the simulator's eight-slot CPU mesh; and a process
+# alone, which joins no fleet
+from karpenter_tpu_torch.parallel.mesh import init_multihost
+from karpenter_tpu_torch.sim import FleetSimulator, parse_scenario
+doc = {{"name": "guard", "seed": 3, "duration": 300, "tick": 20, "events": [
+    {{"at": 5, "kind": "deploy", "name": "web", "replicas": 4, "cpu": "500m",
+      "memory": "256Mi"}},
+    {{"at": 60, "kind": "corrupt_state"}},
+    {{"at": 90, "kind": "kill_device", "duration": 60}},
+    {{"at": 100, "kind": "deploy", "name": "api", "replicas": 3,
+      "cpu": "250m", "memory": "256Mi"}}]}}
+sim = FleetSimulator(parse_scenario(doc), device="cpu")
+report = sim.run()
+assert report["final"]["pods_pending"] == 0, report["final"]
+assert sim.state_corruptor.injected and sim.device_killer.counts
+assert init_multihost() == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "karpenter_tpu"))
 assert not bad, bad

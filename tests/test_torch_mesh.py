@@ -273,11 +273,14 @@ def test_sharded_pack_reconcile_memo_reused_on_unchanged_warm():
 
 class TestMultihostHelpers:
     def test_init_multihost_single_host_noop(self, monkeypatch):
-        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(var, raising=False)
         assert tmesh.init_multihost() == 1
         assert tmesh.init_multihost(num_processes=1) == 1
-        with pytest.raises(NotImplementedError):
+        # a fleet of two asked for with no coordinator to meet at
+        with pytest.raises(ValueError, match="coordinator address"):
             tmesh.init_multihost(num_processes=2)
+        assert not torch.distributed.is_initialized()
 
     def test_local_result_slice_covers_all_groups(self):
         assert tmesh.local_result_slice(cpu_mesh(PORT, 8), 101) == [(0, 101)]

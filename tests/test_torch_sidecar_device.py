@@ -28,7 +28,7 @@ from karpenter_tpu_torch.sidecar import server as srv
 from karpenter_tpu_torch.sidecar.client import RemoteScheduler, SolverSession
 
 from test_torch_support import PORT, factories, fresh_registry, \
-    sidecar_server
+    plain_calls_counted, sidecar_server
 from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 from test_torch_support import sidecar_state_kept  # noqa: F401 (autouse)
 from test_torch_support import tracer_kept  # noqa: F401 (autouse)
@@ -213,18 +213,8 @@ N_PODS, N_DEPLOYS, N_ITS, N_NODES = 540, 12, 40, 24
 def counted():
     """The feasibility wrappers count their plain calls in
     kernels.LAUNCHES, as their kernels count launches on the card."""
-    saved = {name: getattr(kernels, name) for name in chip_smoke.FEASIBILITY}
-
-    def counting(name, wrapper):
-        def call(*a, **kw):
-            kernels.LAUNCHES[name] += 1
-            return wrapper(*a, **kw)
-        return call
-    for name, wrapper in saved.items():
-        setattr(kernels, name, counting(name, wrapper))
-    yield
-    for name, wrapper in saved.items():
-        setattr(kernels, name, wrapper)
+    with plain_calls_counted(chip_smoke.FEASIBILITY):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -3,8 +3,8 @@ CPU): the client-side consistent-hash tenant router, drain-to-peer
 migration behind the `migrated_to` NACK rider, warm restore from the
 shared handoff store after a replica kill, the stale-checkpoint digest
 catch-up path and the handoff store's bounds. The reference's fleet
-scenario schema and fleet sim smoke need the simulator, which the port
-does not have yet (ROADMAP Queue A 6)."""
+scenario schema and fleet sim smoke run through the port's simulator in
+tests/test_torch_sim.py (TestFleetScenarioSchema, TestFleetSimSmoke)."""
 
 import contextlib
 from collections import Counter

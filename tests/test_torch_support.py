@@ -980,3 +980,25 @@ def sidecar_state_kept():
         gc.enable()
     if not frozen:
         gc.unfreeze()
+
+
+@contextmanager
+def plain_calls_counted(names):
+    """Inside the block the port's wrappers ``names`` count their plain
+    calls in kernels.LAUNCHES, as their kernels count launches on the card
+    (chip_smoke.py's phases rehearsed on the CPU)."""
+    kernels = importlib.import_module(f"{PORT}.ops.kernels")
+    saved = {name: getattr(kernels, name) for name in names}
+
+    def counting(name, wrapper):
+        def call(*a, **kw):
+            kernels.LAUNCHES[name] += 1
+            return wrapper(*a, **kw)
+        return call
+    for name, wrapper in saved.items():
+        setattr(kernels, name, counting(name, wrapper))
+    try:
+        yield kernels
+    finally:
+        for name, wrapper in saved.items():
+            setattr(kernels, name, wrapper)
