@@ -55,7 +55,7 @@ gRPC (karpenter_tpu_torch/sidecar), on the card:
   --device cuda --port 0`` as a child process, one cold full-width
   session solve equal to the sidecar's first, then SIGINT;
 - ``operator_sidecar``: the Operator with ``solver_backend="sidecar"``
-  against an in-process server, at 2,496 pods (6 deployments x 416, cut
+  against an in-process server, at 1,248 pods (6 deployments x 208, cut
   from the operator phase's 49,920) x 2,000 types, burst and scale-down,
   every step's store equal to the same run on the CPU, beside the tensor
   backend's final store.
@@ -70,14 +70,34 @@ card:
   window on an 8-slot mesh over the card), each ledger digest and entry
   count equal to the JAX package's pin; state-chaos replayed on the CPU
   too, its injected, detected and healed counts equal to the card's;
-- ``sim_mixed_day``: mixed-day's whole 24 h twice, equal digests and the
-  JAX package's, at least 100x faster than simulated time, one SLO breach
-  with one flight dump that joins the ledger.
+- ``sim_mixed_day``: mixed-day's whole 24 h, the JAX package's digest, at
+  least 100x faster than simulated time, one SLO breach with one flight
+  dump that joins the ledger; then its first 21,600 s again, the JAX
+  package's digest of that clip and the day's first ledger entries.
 
 And the mesh across processes: ``mesh_multiprocess``, two processes joined
 by ``init_multihost`` (gloo over 127.0.0.1), each with its own CUDA context
 on the card and four slots of one 4x2 mesh, solving the 49,920-pod batch
 cold, each process's decisions equal to the one-process cold solve's.
+
+Then the Operator as Karpenter is deployed, over a kube-apiserver's REST
+and watch wire (``store_backend="kube"``) against the port's in-process
+EnvtestServer on 127.0.0.1, with the CRDs of ``python -m
+karpenter_tpu_torch.api.crds`` posted and a kubeconfig naming it:
+
+- ``operator_kube``: the burst and the scale-down of the operator phase at
+  KUBE_PODS = 480 pods (all 120 deployments and nine kinds of the mix, so
+  K1-K3 run at the north star's widths) x 2,000 types, on the server's fake
+  clock, each step driven to quiescence over the wire (KubeWire); every
+  step's normalised apiserver state equal to the same drive on the CPU,
+  with the requests, their milliseconds, the watch events and the wire's
+  seconds beside the solve's;
+- ``operator_kube_process``: ``python -m karpenter_tpu_torch.operator
+  --device cuda --store-backend kube --kubeconfig <file> --leader-elect``
+  as a child process (the CLI's kwok catalog, the real clock, a KubeLease
+  over the wire): every pod of a 480-pod burst bound, the child's first
+  provisioning record fetched from /debug/flightrecorder and replayed here
+  on the card to a match, exit code 0 on SIGINT.
 
 It checks that the kernels carried every path (launch counts, zeroed just
 before each path and read just after; the sidecar's gRPC worker threads
@@ -112,12 +132,17 @@ After the paths, the port's observability on the card:
 - ``flight_recorder``: a FlightRecorder on the north-star Provisioner passes
   and on DisruptionController passes over 5,000 nodes (each record's
   decision equal to its pass's, the capture's cost, the JSONL bytes), and
-  every disruption record and one 2,496-pod provisioning record replayed on
+  every disruption record and one 1,248-pod provisioning record replayed on
   the card to a match.
 
 Each phase prints JSON lines. The line before last is the kernel table; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without CUDA it exits non-zero before printing a result.
+
+``python3 chip_smoke.py --operator-kube-pods N [N ...]`` builds the kernels
+and runs only ``operator_kube`` at N pods (120 deployments) for each N,
+with the same holds, then stops: a probe of the wire's cost at other
+sizes, with no kernel table and no result line.
 """
 
 from __future__ import annotations
@@ -130,6 +155,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 DEVICE = "cuda"
@@ -143,9 +169,10 @@ KERNEL_RUNS = 20
 # the warm passes (bench.py's meshchurn and stateplane modes): after a cold
 # pass 0, WINDOW_REPEATS rounds of the three window kinds; every window
 # moves WOBBLE pods between deployments, and node_churn and rollout windows
-# give CHURN_ROWS nodes of one exist shard's rows one more bound pod
+# give CHURN_ROWS nodes of one exist shard's rows one more bound pod (3
+# rounds until the script's length needed the time)
 WINDOW_KINDS = ("wobble", "node_churn", "rollout")
-WINDOW_REPEATS = 3
+WINDOW_REPEATS = 2
 WOBBLE = 24
 CHURN_ROWS = 64
 CHURN_SHARD = 1
@@ -1242,13 +1269,19 @@ def _operator_digest(op, claims_in_order, commands) -> tuple:
 
 
 def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
-                 n_its: int = N_ITS, sidecar: str = None) -> dict:
+                 n_its: int = N_ITS, sidecar: str = None,
+                 kube: bool = False) -> dict:
     """The port's Operator as a user runs it — the whole controller roster,
     the flight recorder and the tracer at their default rings — over the
     kwok provider with construct_catalog(n_its) and the operator's own
     store, default_pool() and bench_pods(n_pods, n_deploys), on a fake
     clock; with ``sidecar`` (an address) its provisioning solves go to the
-    solver sidecar there (``solver_backend="sidecar"``):
+    solver sidecar there (``solver_backend="sidecar"``); with ``kube`` its
+    store is a KubeApiStore over the port's EnvtestServer on 127.0.0.1
+    (``store_backend="kube"``, a KubeWire on the same fake clock: the
+    workload applied through a client store, each step driven to
+    quiescence over the wire; the counts, and the digest of the server's
+    whole state beside the commands, read from the server):
 
     - burst: every pod pending; step() and 1.1 s, until step() is quiet
       twice in a row with every pod bound that can be: the pods still
@@ -1276,14 +1309,24 @@ def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
     from karpenter_tpu_torch.ops import kernels
     from karpenter_tpu_torch.provisioning import tensor_scheduler as ts_mod
     from karpenter_tpu_torch.utils.clock import FakeClock
+    import tempfile
     provider = KwokCloudProvider(instance_types=construct_catalog(n_its))
     backend = dict(solver_backend="sidecar", solver_address=sidecar) \
         if sidecar else {}
+    clock, wire, tmp = FakeClock(), None, None
+    if kube:
+        from karpenter_tpu_torch.kube.k8s_codec import WATCH_KINDS
+        tmp = tempfile.TemporaryDirectory(prefix="karpenter-kube-")
+        wire = KubeWire(clock, tmp.name)
+        backend.update(store_backend="kube", kubeconfig=wire.kubeconfig)
     op = Operator(Options(metrics_port=0, health_probe_port=0,
                           log_level="error", **backend),
-                  cloud_provider=provider, clock=FakeClock(), device=device)
+                  cloud_provider=provider, clock=clock, device=device)
     # a caller's provider launches into the operator's own store
     provider.store = op.store
+    if wire is not None:
+        wire.attach(op.store, WATCH_KINDS)
+    writer = wire.client if wire is not None else op.store
     claims_in_order, commands, fallbacks = [], [], []
     op.store.watch(lambda ev: ev.kind is NodeClaim and ev.type == "ADDED"
                    and claims_in_order.append(ev.obj.name))
@@ -1310,21 +1353,33 @@ def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
     def exporters_s() -> float:
         return spent["metrics.pod"] + spent["metrics.node"]
     solve = ts_mod.TensorScheduler.solve
+    solve_s = [0.0]
 
     def solve_noting(self, *a, **kw):
+        t0 = time.perf_counter()
         try:
             return solve(self, *a, **kw)
         finally:
+            solve_s[0] += time.perf_counter() - t0
             fallbacks.append(self.fallback_reason)
 
-    op.store.create(default_pool())
     pods = bench_pods(n_pods, n_deploys)
+    t0 = time.perf_counter()
+    writer.create(default_pool())
     for p in pods:
-        op.store.create(p)
+        writer.create(p)
+    apply_s = time.perf_counter() - t0
     steps, digests = [], []
 
-    def bound() -> int:
-        return sum(1 for p in op.store.list(Pod) if p.spec.node_name)
+    def counts() -> dict:
+        """The live claims, nodes, pods and bound pods (the server's, with
+        the wire)."""
+        if wire is not None:
+            return wire.counts()
+        pods = op.store.list(Pod)
+        return {"claims": len(op.store.list(NodeClaim)),
+                "nodes": len(op.store.list(Node)), "pods": len(pods),
+                "bound": sum(1 for p in pods if p.spec.node_name)}
 
     def settled(last) -> bool:
         """Every pod bound but the last provisioning pass's pod errors."""
@@ -1335,18 +1390,20 @@ def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
     def step(stage: str) -> bool:
         before = dict(kernels.LAUNCHES)
         spent0, last = dict(spent), TRACER.last()
+        wire0 = wire.totals() if wire is not None else None
+        solve0 = solve_s[0]
         t0 = time.perf_counter()
-        quiet = op.step()
+        if wire is not None:
+            quiet, rounds = wire.step(op)
+        else:
+            quiet, rounds = op.step(), None
         _sync(device)
         s = time.perf_counter() - t0
-        n_bound = bound()
         steps.append({
             "stage": stage, "step": len(steps), "s": s, "quiet": quiet,
             "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before
                          if kernels.LAUNCHES[k] - before[k]},
-            "claims": len(op.store.list(NodeClaim)),
-            "nodes": len(op.store.list(Node)), "bound": n_bound,
-            "pods": len(op.store.list(Pod)), "commands": len(commands),
+            **counts(), "commands": len(commands),
             "queued": len(op.queue.items),
             "exporters_s": exporters_s() - spent0.get("metrics.pod", 0.0)
             - spent0.get("metrics.node", 0.0),
@@ -1355,7 +1412,14 @@ def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
                 key=lambda kv: -kv[1])[:6]),
             "spans_ms": merged_spans(traces_since(
                 last.trace_id if last else None), 8)})
-        digests.append(_operator_digest(op, claims_in_order, commands))
+        if wire is not None:
+            steps[-1].update(rounds=rounds, solve_s=solve_s[0] - solve0,
+                             **{k: v - wire0[k]
+                                for k, v in wire.totals().items()})
+            digests.append((wire.state_digest(claims_in_order),
+                            tuple(commands)))
+        else:
+            digests.append(_operator_digest(op, claims_in_order, commands))
         op.clock.step(1.1)
         return quiet
 
@@ -1375,7 +1439,7 @@ def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
             by_app.setdefault(p.labels["app"], []).append(p)
         for group in by_app.values():
             for p in group[::2]:
-                op.store.delete(p)
+                writer.delete(p)
         step("scale_down")
         op.clock.step(CONSOLIDATION_TTL_SECONDS + 1.0)
         calm = 0
@@ -1394,12 +1458,19 @@ def operator_run(device, n_pods: int = N_PODS, n_deploys: int = N_DEPLOYS,
         op.stop_serving()
         if op.solver_session is not None:
             op.solver_session.close()
+        if wire is not None:
+            wire.close(op)
+            tmp.cleanup()
     errors = op.provisioner.last_results.pod_errors
-    return {"steps": steps, "digests": digests, "fallbacks": fallbacks,
-            "exporters_s": exporters_s(), "commands": commands,
-            "controllers_s": dict(spent.most_common()),
-            "pods": len(pods), "unschedulable": dict(collections.Counter(
-                errors.values()))}
+    out = {"steps": steps, "digests": digests, "fallbacks": fallbacks,
+           "exporters_s": exporters_s(), "commands": commands,
+           "controllers_s": dict(spent.most_common()),
+           "pods": len(pods), "unschedulable": dict(collections.Counter(
+               errors.values())), "apply_s": apply_s, "solve_s": solve_s[0]}
+    if wire is not None:
+        out["wire"] = wire.totals()
+        out["apply_requests"] = wire.client_requests()
+    return out
 
 
 @contextlib.contextmanager
@@ -1456,11 +1527,14 @@ def _process_state_kept():
                 getattr(m, a).update(values)
 
 
-def operator_phase(device, record, **sizes) -> list:
+def operator_phase(device, record, phase: str = "operator",
+                   **sizes) -> list:
     """operator_run on ``device`` and on the CPU: the digests equal after
     every step, no solve fell back, K1-K3 launched on the card. ``record``
     is called just after the card's run (the path's launch counts).
-    Returns the JSON lines to print."""
+    ``sizes`` go to operator_run (``kube=True`` for the operator over the
+    apiserver wire, phase ``operator_kube``). Returns the JSON lines to
+    print."""
     from karpenter_tpu_torch.ops import kernels
     with _process_state_kept():
         _reset_counts(kernels)
@@ -1475,27 +1549,27 @@ def operator_phase(device, record, **sizes) -> list:
     assert len(card["digests"]) == len(cpu["digests"]), \
         (len(card["digests"]), len(cpu["digests"]))
     for i, (g, c) in enumerate(zip(card["digests"], cpu["digests"])):
-        assert g == c, f"operator step {i}: the card's and the CPU's " \
+        assert g == c, f"{phase} step {i}: the card's and the CPU's " \
                        f"stores differ"
     bad = [r for r in card["fallbacks"] if r]
     assert not bad and card["fallbacks"], \
-        f"operator: solves fell back to the host oracle: {bad[:3]}"
+        f"{phase}: solves fell back to the host oracle: {bad[:3]}"
     for name in FEASIBILITY:
-        assert launches[name] > 0, f"operator: {name} never launched"
+        assert launches[name] > 0, f"{phase}: {name} never launched"
         assert any(k[0] == name for k in held), name
     down = [s for s in card["steps"] if s["stage"] == "scale_down"]
-    assert card["commands"], "operator: no disruption command executed"
+    assert card["commands"], f"{phase}: no disruption command executed"
     host_s = sum(s["s"] for s in card["steps"])
     lines = []
     for g, c in zip(card["steps"], cpu["steps"], strict=True):
-        lines.append({"phase": "operator_step", **g, "cpu_s": c["s"],
+        lines.append({"phase": f"{phase}_step", **g, "cpu_s": c["s"],
                       "digest_equals_cpu": True})
     slowest = {stage: max((s for s in card["steps"] if s["stage"] == stage),
                           key=lambda s: s["s"])
                for stage in ("burst", "scale_down")}
     last = card["steps"][-1]
     lines.append({
-        "phase": "operator", "pods": card["pods"],
+        "phase": phase, "pods": card["pods"],
         "steps": len(card["steps"]),
         "burst_steps": len(card["steps"]) - len(down),
         "scale_down_steps": len(down),
@@ -1523,16 +1597,419 @@ def operator_phase(device, record, **sizes) -> list:
             {"name": name, "shapes": [list(x) for x in shapes],
              "max_abs_err": err}
             for (name, shapes), err in sorted(held.items())]})
+    if "wire" in card:
+        lines[-1].update(_wire_summary(card, cpu, sizes))
     return lines
 
 
 # --------------------------------------------------------------------------
-# the solver sidecar: the same solves through the gRPC boundary
+# the operator over the apiserver wire
 # --------------------------------------------------------------------------
 
-#: the operator over the sidecar: 6 deployments of 416 pods (the operator
-#: phase runs 120 of them)
-OPERATOR_SIDECAR_PODS = 2_496
+#: operator_kube: all 120 deployments and nine pod kinds of the benchmark
+#: mix (the widths of the north star), 4 pods each (the operator phase runs
+#: 416 each). Over the wire the reference's operator makes about 30
+#: requests a pod, most of them the manager's re-fetch of every queued item
+#: and whole-collection lists; with the CPU's run beside the card's, 4
+#: pods each is what the script's time allows (PERF.md)
+KUBE_PODS = 480
+KUBE_DEPLOYS = 120
+#: operator_kube_process: the CLI as a child process, 4 pods a deployment
+KUBE_PROCESS_PODS = 480
+#: seconds the child may take to bind every pod once they are applied
+KUBE_BIND_S = 300
+#: wire rounds (settle, pump, step) one step may take to go quiet
+KUBE_ROUNDS = 64
+#: seconds the operator's watches may take to catch up with the server
+KUBE_SETTLE_S = 120
+#: the CRD route a `kubectl apply -f crds/` posts to
+_CRD_ROUTE = "/apis/apiextensions.k8s.io/v1/customresourcedefinitions"
+
+
+def write_kubeconfig(url: str, directory: str) -> str:
+    """A minimal kubeconfig naming ``url``: one cluster, one user with no
+    credentials, one context, current. Returns its path."""
+    import yaml
+    cfg = {"apiVersion": "v1", "kind": "Config",
+           "clusters": [{"name": "envtest", "cluster": {"server": url}}],
+           "users": [{"name": "envtest", "user": {}}],
+           "contexts": [{"name": "envtest", "context": {
+               "cluster": "envtest", "user": "envtest"}}],
+           "current-context": "envtest"}
+    path = os.path.join(directory, "kubeconfig")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def post_crds(url: str, manifests: dict) -> list:
+    """Each CRD manifest POSTed to the server at ``url``, as `kubectl apply
+    -f crds/` would; returns the CRDs' names."""
+    import urllib.request
+    import yaml
+    names = []
+    for _, text in sorted(manifests.items()):
+        crd = yaml.safe_load(text)
+        req = urllib.request.Request(
+            url + _CRD_ROUTE, data=json.dumps(crd).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            assert resp.status == 201, resp.status
+        names.append(crd["metadata"]["name"])
+    return names
+
+
+class KubeWire:
+    """An in-process apiserver on 127.0.0.1 on the run's clock, with the
+    CRDs posted, a kubeconfig naming it and a client store to apply the
+    workload; ``attach`` meters an operator's KubeApiStore and ``step``
+    drives it to quiescence over the wire. The modules are the port's
+    unless others are given (a test hands the JAX package's).
+
+    Watch delivery is asynchronous, so a step first waits until the store
+    has received every log entry the server holds for the watched routes
+    (``srv.state.log`` and ``rv`` read under ``srv.state.lock``), then
+    delivers the queued events in the server's order (by resourceVersion:
+    the five watch threads interleave at random), then steps; it repeats
+    until a step writes nothing. Runs of it are then alike event for
+    event."""
+
+    def __init__(self, clock, directory: str, envtest=None, apiserver=None,
+                 manifests=None):
+        if envtest is None:
+            from karpenter_tpu_torch.kube import envtest
+        if apiserver is None:
+            from karpenter_tpu_torch.kube import apiserver
+        if manifests is None:
+            from karpenter_tpu_torch.api.crds import manifests as crds
+            manifests = crds()
+        self.server = envtest.EnvtestServer(clock=clock).start()
+        self.crds = post_crds(self.server.url, manifests)
+        self.kubeconfig = write_kubeconfig(self.server.url, directory)
+        self.client = apiserver.KubeApiStore(self.server.url, clock=clock)
+        self._client_requests = [0]
+        request = self.client._request
+
+        def counted(*a, **kw):
+            self._client_requests[0] += 1
+            return request(*a, **kw)
+        self.client._request = counted
+        self.store = None
+        self._lock = threading.Lock()
+        self._totals = {"requests": 0, "request_s": 0.0, "settle_s": 0.0,
+                        "events": 0}
+
+    def client_requests(self) -> int:
+        return self._client_requests[0]
+
+    def totals(self) -> dict:
+        with self._lock:
+            return dict(self._totals)
+
+    def attach(self, store, kinds) -> None:
+        """Meter ``store``'s requests (any thread: the event sink posts
+        from its own), note the resourceVersion each watch event carries,
+        start the watches on ``kinds`` and wait until each has listed its
+        route, before any object is applied."""
+        self.store = store
+        self.routes = {kind: tuple(store._route(kind)[:2]) for kind in kinds}
+        self._want = set(self.routes.values())
+        self._cursor, self._last = 0, {}
+        self.seen: dict = {}
+        listed: set = set()
+        request = store._request
+
+        def metered(method, url, body=None):
+            t0 = time.perf_counter()
+            try:
+                return request(method, url, body)
+            finally:
+                with self._lock:
+                    self._totals["requests"] += 1
+                    self._totals["request_s"] += time.perf_counter() - t0
+                    if method == "GET" and "?" not in url:
+                        listed.add(url)
+        store._request = metered
+        put = store._events.put
+
+        def noting(ev, *a, **kw):
+            route = self.routes[ev.kind]
+            with self._lock:
+                self.seen[route] = max(self.seen.get(route, 0),
+                                       ev.obj.metadata.resource_version)
+            return put(ev, *a, **kw)
+        store._events.put = noting
+        store.start_watches(kinds)
+        deadline = time.perf_counter() + KUBE_SETTLE_S
+        while True:
+            with self._lock:
+                if len(listed) >= len(kinds):
+                    break
+            assert time.perf_counter() < deadline, "the watches never listed"
+            time.sleep(0.005)
+
+    def _last_rvs(self) -> dict:
+        """The newest resourceVersion the server logged on each watched
+        route that has a log: the entries appended to the log since the
+        last call folded into those of the calls before."""
+        st, last = self.server.state, self._last
+        with st.lock:
+            tail = st.log[self._cursor:]
+            self._cursor += len(tail)
+        for rv, route, _, _ in tail:
+            if route in self._want:
+                last[route] = rv
+        return dict(last)
+
+    def settle(self) -> None:
+        """Wait until the store has received every entry of the log."""
+        t0 = time.perf_counter()
+        while True:
+            last = self._last_rvs()
+            with self._lock:
+                if all(self.seen.get(r, 0) >= rv for r, rv in last.items()):
+                    break
+            assert time.perf_counter() - t0 < KUBE_SETTLE_S, \
+                f"the watches fell behind the server: {last} {self.seen}"
+            time.sleep(0.002)
+        with self._lock:
+            self._totals["settle_s"] += time.perf_counter() - t0
+
+    def pump(self) -> int:
+        """Deliver the queued watch events in the server's order."""
+        store, got = self.store, []
+        watchers = store._watchers
+        store._watchers = [got.append]
+        try:
+            while store.pump_events():
+                pass
+        finally:
+            store._watchers = watchers
+        got.sort(key=lambda ev: ev.obj.metadata.resource_version)
+        for ev in got:
+            for cb in watchers:
+                cb(ev)
+        with self._lock:
+            self._totals["events"] += len(got)
+        return len(got)
+
+    def _rv(self) -> int:
+        with self.server.state.lock:
+            return self.server.state.rv
+
+    def step(self, op) -> tuple:
+        """(quiet, rounds): settle, pump and ``op.step()`` until a step
+        writes nothing to the server."""
+        for rounds in range(1, KUBE_ROUNDS + 1):
+            self.settle()
+            self.pump()
+            rv = self._rv()
+            quiet = op.step()
+            if self._rv() == rv:
+                return quiet, rounds
+        raise AssertionError(f"the wire was not quiet in {KUBE_ROUNDS} "
+                             f"rounds")
+
+    def counts(self) -> dict:
+        """The server's claims, nodes, pods and bound pods."""
+        st = self.server.state
+        with st.lock:
+            live = {plural: [o for route, coll in st.objects.items()
+                             if route[1] == plural for o in coll.values()]
+                    for plural in ("nodeclaims", "nodes", "pods")}
+            return {"claims": len(live["nodeclaims"]),
+                    "nodes": len(live["nodes"]), "pods": len(live["pods"]),
+                    "bound": sum(1 for o in live["pods"]
+                                 if (o.get("spec") or {}).get("nodeName"))}
+
+    def state_digest(self, claims_in_order) -> str:
+        """sha256 of every object the server holds, normalised: every
+        ``uid`` (the server's uuid4, or a random one the client sent) and
+        ``resourceVersion`` blanked, each claim named by its creation order
+        (the claim-name sequence is process-wide). Timestamps stay: the
+        server and the operator share the run's fake clock."""
+        import hashlib
+        import re
+        names = {f'"{n}"': f'"claim-{i}"'
+                 for i, n in enumerate(claims_in_order)}
+        st = self.server.state
+        with st.lock:
+            text = [json.dumps(o, sort_keys=True) for _, coll in
+                    sorted(st.objects.items()) for o in coll.values()]
+        text = [re.sub(r'"(uid|resourceVersion)": "[^"]*"', r'"\1": ""', t)
+                for t in text]
+        if names:
+            pattern = re.compile("|".join(map(re.escape, names)))
+            text = [pattern.sub(lambda m: names[m.group(0)], t)
+                    for t in text]
+        return hashlib.sha256("\n".join(sorted(text)).encode()).hexdigest()
+
+    def close(self, op=None) -> None:
+        """Stop the operator's event sink and watches, then the server."""
+        if op is not None:
+            close = getattr(op.recorder.sink, "close", None)
+            if close is not None:
+                close()
+            op.store.stop_watches()
+        self.server.stop()
+
+
+def _wire_summary(card: dict, cpu: dict, sizes: dict) -> dict:
+    """The operator_kube line's wire figures: the apply, the operator's
+    requests and watch events, and the wire's seconds beside the solve's,
+    on the card and on the CPU."""
+    def figures(run: dict) -> dict:
+        w = run["wire"]
+        steps_s = sum(s["s"] for s in run["steps"])
+        return {"requests": w["requests"],
+                "ms_per_request": 1e3 * w["request_s"] / max(1,
+                                                             w["requests"]),
+                "request_s": w["request_s"], "settle_s": w["settle_s"],
+                "wire_s": w["request_s"] + w["settle_s"],
+                "watch_events": w["events"], "solve_s": run["solve_s"],
+                "steps_s": steps_s,
+                "wire_share": (w["request_s"] + w["settle_s"]) / steps_s,
+                "rounds": sum(s["rounds"] for s in run["steps"]),
+                "apply_s": run["apply_s"],
+                "apply_requests": run["apply_requests"],
+                "apply_ms_per_pod": 1e3 * run["apply_s"] / run["pods"]}
+    n = sizes.get("n_pods", KUBE_PODS)
+    d = sizes.get("n_deploys", KUBE_DEPLOYS)
+    return {"wire": figures(card), "cpu_wire": figures(cpu),
+            "reduced": f"pods: {n} ({d} deployments x {n // d}; the "
+                       f"operator phase runs "
+                       f"{N_PODS // N_DEPLOYS * N_DEPLOYS})",
+            "state_digest_equals_cpu_every_step": True}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get(url: str, timeout: float = 60) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def operator_kube_process_phase(device, n_pods: int = KUBE_PROCESS_PODS,
+                                n_deploys: int = KUBE_DEPLOYS) -> dict:
+    """The operator as a deployment runs it: ``python -m
+    karpenter_tpu_torch.operator --device <device> --store-backend kube
+    --kubeconfig <file> --leader-elect`` as a child process against the
+    port's EnvtestServer (real clock, the CRDs posted), with the CLI's
+    default kwok catalog and a KubeLease over the wire. Its starting line
+    must name ``device``; default_pool() and bench_pods(n_pods, n_deploys)
+    are applied; every pod must be bound within KUBE_BIND_S; every
+    provisioning record of the child (``/debug/flightrecorder?format=jsonl``)
+    must carry no fallback reason and its precompute must have dispatched
+    (``karpenter_device_dispatches_total`` on ``/metrics``); its first
+    provisioning record is replayed here on ``device`` to a match; SIGINT
+    must end the child with exit code 0. On any failure the child's stderr
+    is printed."""
+    import re
+    import signal
+    import tempfile
+    from karpenter_tpu_torch.utils.clock import Clock
+    with tempfile.TemporaryDirectory(prefix="karpenter-kube-") as tmp, \
+            tempfile.TemporaryFile(mode="w+") as err:
+        wire = KubeWire(Clock(), tmp)
+        metrics_port, health_port = _free_port(), _free_port()
+        command = ["--device", device, "--store-backend", "kube",
+                   "--kubeconfig", wire.kubeconfig, "--leader-elect",
+                   "--metrics-port", str(metrics_port),
+                   "--health-probe-port", str(health_port),
+                   "--log-level", "error"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "karpenter_tpu_torch.operator", *command],
+            cwd=_ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            started = _child_line(
+                proc, t0 + CHILD_BOOT_S,
+                r"karpenter-tpu operator starting \(.*device=([^)]*)\)",
+                "the operator")
+            assert started.group(1).split(":")[0] == \
+                device.split(":")[0], started.group(0)
+            boot_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            wire.client.create(default_pool())
+            pods = bench_pods(n_pods, n_deploys)
+            for p in pods:
+                wire.client.create(p)
+            apply_s = time.perf_counter() - t1
+            while True:
+                bound = wire.counts()["bound"]
+                if bound == len(pods):
+                    break
+                assert time.perf_counter() - t1 < KUBE_BIND_S, \
+                    f"the child bound {bound} of {len(pods)} pods in " \
+                    f"{KUBE_BIND_S} s"
+                assert proc.poll() is None, \
+                    f"the child exited with {proc.returncode}"
+                time.sleep(0.25)
+            bind_s = time.perf_counter() - t1
+            base = f"http://127.0.0.1:{metrics_port}"
+            records = [ln for ln in _get(
+                f"{base}/debug/flightrecorder?format=jsonl&n=1000"
+            ).splitlines() if ln.strip()]
+            solves = [(i, json.loads(ln)) for i, ln in enumerate(records)]
+            solves = [(i, r) for i, r in solves
+                      if r.get("kind") == "provisioning"]
+            assert solves, "the child recorded no provisioning solve"
+            fell_back = [r["meta"].get("fallback_reason") for _, r in solves
+                         if r["meta"].get("fallback_reason")]
+            assert not fell_back, \
+                f"the child's solves fell back to the host oracle: " \
+                f"{fell_back[:3]}"
+            first = solves[0][0]
+            replay = _replayed(records[first], first, device)
+            dispatches = sum(
+                float(m.group(1)) for m in re.finditer(
+                    r"^karpenter_device_dispatches_total\{[^}]*\} (\S+)$",
+                    _get(f"{base}/metrics"), re.M))
+            assert dispatches > 0, "the child dispatched no solve"
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+            assert rc == 0, f"the operator exited with {rc} on SIGINT"
+        except BaseException:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            err.seek(0)
+            print(f"operator child stderr:\n{err.read()[-8000:]}",
+                  file=sys.stderr, flush=True)
+            raise
+        finally:
+            wire.close()
+        st = wire.server.state
+        with st.lock:
+            leases = [o for route, coll in st.objects.items()
+                      if route[1] == "leases" for o in coll.values()]
+    return {"phase": "operator_kube_process", "device": device,
+            "started": started.group(0),
+            "command": "python -m karpenter_tpu_torch.operator "
+                       + " ".join(command),
+            "crds": wire.crds, "boot_s": boot_s, "pods": len(pods),
+            "reduced": f"pods: {n_pods} ({n_deploys} deployments x "
+                       f"{n_pods // n_deploys})",
+            "apply_s": apply_s, "apply_requests": wire.client_requests(),
+            "bound": len(pods), "bind_s": bind_s,
+            "records": len(records), "provisioning_records": len(solves),
+            "fallbacks": 0, "replayed": replay,
+            "device_dispatches": dispatches,
+            "lease_holder": [(o.get("spec") or {}).get("holderIdentity")
+                             for o in leases],
+            "exit_code": rc}
+
+# --------------------------------------------------------------------------
+
+#: the operator over the sidecar: 6 deployments of 208 pods (the operator
+#: phase runs 120 of 416); 416 each until the kube phases needed the time
+OPERATOR_SIDECAR_PODS = 1_248
 OPERATOR_SIDECAR_DEPLOYS = 6
 #: seconds the sidecar child process may take to print its port
 CHILD_BOOT_S = 300
@@ -1845,13 +2322,12 @@ def sidecar_fleet_phase(device, pool, catalog, pods, span, runs,
             "held_equal_at_path_shapes": _held_lines(held)}
 
 
-def _child_port(proc, deadline: float) -> int:
-    """The port the sidecar child prints on its line 'solver sidecar
-    listening on 127.0.0.1:<port>' (its stdout read on a thread, so a
-    wait never blocks past the deadline)."""
+def _child_line(proc, deadline: float, pattern: str, who: str):
+    """The match of ``pattern`` on the first line of the child's stdout
+    that has one (its stdout read on a thread, so a wait never blocks past
+    the deadline)."""
     import queue
     import re
-    import threading
     lines: queue.Queue = queue.Queue()
     threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
                      daemon=True).start()
@@ -1860,14 +2336,21 @@ def _child_port(proc, deadline: float) -> int:
             line = lines.get(timeout=1.0)
         except queue.Empty:
             if proc.poll() is not None:
-                raise RuntimeError(f"the sidecar exited with "
-                                   f"{proc.returncode} before it listened")
+                raise RuntimeError(f"{who} exited with {proc.returncode} "
+                                   f"before printing /{pattern}/")
             continue
-        m = re.match(r"solver sidecar listening on 127\.0\.0\.1:(\d+)",
-                     line)
+        m = re.match(pattern, line)
         if m:
-            return int(m.group(1))
-    raise RuntimeError(f"the sidecar printed no port in {CHILD_BOOT_S} s")
+            return m
+    raise RuntimeError(f"{who} printed no /{pattern}/ in {CHILD_BOOT_S} s")
+
+
+def _child_port(proc, deadline: float) -> int:
+    """The port the sidecar child prints on its line 'solver sidecar
+    listening on 127.0.0.1:<port>'."""
+    return int(_child_line(
+        proc, deadline, r"solver sidecar listening on 127\.0\.0\.1:(\d+)",
+        "the sidecar").group(1))
 
 
 def sidecar_process_phase(device, pool, catalog, pods, want) -> dict:
@@ -2008,6 +2491,14 @@ SIM_GOLDEN = os.path.join("tests", "goldens", "sim-regression.json")
 MIXED_DAY_DIGEST = \
     "25b1c0ac3920642aa4c6e3132159847d3a662f235f47b7810043c94e0c157bf4"
 MIXED_DAY_ENTRIES = 1390
+#: the second run replays the day's first quarter only: its digest and
+#: entries from the JAX package on the CPU, the same command with the
+#: scenario's events and duration clipped at MIXED_DAY_CLIP (as _scenario
+#: clips them)
+MIXED_DAY_CLIP = 21_600.0
+MIXED_DAY_CLIP_DIGEST = \
+    "5bed23d9c690636e85278cd2d76f5ddd900acb5b7cacf327e054f5fbcd335496"
+MIXED_DAY_CLIP_ENTRIES = 395
 #: the simulated-to-wall ratio a whole day must beat (bench.py bench_sim)
 SIM_COMPRESSION = 100
 #: the mesh across processes: two processes, each with half the slots
@@ -2120,19 +2611,21 @@ def sim_pinned_phase(device, record) -> list:
 
 
 def sim_mixed_day_phase(device, record) -> list:
-    """mixed-day's whole 24 h twice on ``device``, as bench.py's bench_sim
-    holds it: equal digests, both MIXED_DAY_DIGEST; a compression of at
-    least SIM_COMPRESSION; exactly one SLO breach with exactly one flight
-    dump, whose records join the ledger's solves by trace id. K1-K3 held
-    at every launch shape; ``record`` is called just after the runs."""
+    """mixed-day on ``device``, as bench.py's bench_sim holds it: the whole
+    24 h (digest MIXED_DAY_DIGEST, exactly one SLO breach with exactly one
+    flight dump, whose records join the ledger's solves by trace id), then
+    its first MIXED_DAY_CLIP seconds again (digest MIXED_DAY_CLIP_DIGEST,
+    no breach, its ledger the whole day's first entries but for trace
+    ids); each a compression of at least SIM_COMPRESSION. K1-K3 held at
+    every launch shape; ``record`` is called just after the runs."""
     import tempfile
     from karpenter_tpu_torch.ops import kernels
-    lines, digests = [], []
+    lines, digests, ledgers = [], [], []
     _reset_counts(kernels)
     with _held_at_each_shape(kernels) as held:
-        for run in range(2):
+        for run, clip in enumerate((None, MIXED_DAY_CLIP)):
             with tempfile.TemporaryDirectory() as dumps:
-                sim, report, s = _simulate(_scenario("mixed-day.yaml"),
+                sim, report, s = _simulate(_scenario("mixed-day.yaml", clip),
                                            device, flightrec_dir=dumps)
                 files = sorted(os.listdir(dumps))
                 records = [json.loads(line)
@@ -2140,19 +2633,24 @@ def sim_mixed_day_phase(device, record) -> list:
                            for line in open(os.path.join(dumps, name))
                            if line.strip()]
             digests.append(report["ledger_digest"])
+            ledgers.append([{k: v for k, v in e.items() if k != "trace_id"}
+                            for e in sim.ledger.entries])
             breaches = report["breaches"]
-            assert len(breaches) == 1 and len(files) == 1, \
+            want = 1 if clip is None else 0
+            assert len(breaches) == len(files) == want, \
                 f"sim_mixed_day: {len(breaches)} breaches, {files}"
-            trace_id = breaches[0]["trace_id"]
-            solves = {e.get("trace_id") for e in sim.ledger.entries
-                      if e["kind"] == "solve"}
-            assert records and trace_id in solves and all(
-                r["meta"]["trace_id"] == trace_id for r in records), \
-                "sim_mixed_day: the dump does not join the ledger"
+            if breaches:
+                trace_id = breaches[0]["trace_id"]
+                solves = {e.get("trace_id") for e in sim.ledger.entries
+                          if e["kind"] == "solve"}
+                assert records and trace_id in solves and all(
+                    r["meta"]["trace_id"] == trace_id for r in records), \
+                    "sim_mixed_day: the dump does not join the ledger"
             assert report["compression"] >= SIM_COMPRESSION, \
                 f"sim_mixed_day: compression {report['compression']}"
             lines.append({
                 "phase": "sim_mixed_day", "run": run, "device": device,
+                "clip_s": clip,
                 "s": s, "sim_s": report["sim_seconds"],
                 "wall_s": report["wall_seconds"],
                 "compression": report["compression"],
@@ -2160,15 +2658,17 @@ def sim_mixed_day_phase(device, record) -> list:
                 "time_to_schedule": report["time_to_schedule"],
                 "cost": report["cost"], "churn": report["churn"],
                 "attribution": report["attribution"],
-                "breaches": 1, "dump_records": len(records),
-                "dump_joins_ledger": True,
+                "breaches": len(breaches), "dump_records": len(records),
+                "dump_joins_ledger": bool(breaches),
                 "ledger_entries": report["ledger_entries"],
                 "ledger_digest": report["ledger_digest"]})
     launches = record()
-    assert digests[0] == digests[1], "sim_mixed_day: the runs differ"
-    assert digests[0] == MIXED_DAY_DIGEST, \
-        f"sim_mixed_day: {digests[0]} is not the JAX package's day"
-    assert lines[0]["ledger_entries"] == MIXED_DAY_ENTRIES
+    assert digests == [MIXED_DAY_DIGEST, MIXED_DAY_CLIP_DIGEST], \
+        f"sim_mixed_day: {digests} are not the JAX package's"
+    assert [ln["ledger_entries"] for ln in lines] == \
+        [MIXED_DAY_ENTRIES, MIXED_DAY_CLIP_ENTRIES]
+    assert ledgers[0][:MIXED_DAY_CLIP_ENTRIES] == ledgers[1], \
+        "sim_mixed_day: the clipped run is not the day's beginning"
     for name in FEASIBILITY:
         assert launches[name] > 0, f"sim_mixed_day: {name} never launched"
         assert any(k[0] == name for k in held), name
@@ -2317,14 +2817,15 @@ def mesh_multiprocess_phase(want: dict, single_s: float,
 #: int4 path) and 9
 FITS_EDGES = [(A, B, R) for A in (1, 8192) for B in (1, 7, 120, 121, 4096)
               for R in (1, 4, 9)]
-#: the provisioning record replayed on the card: a 2,496-pod batch (6
-#: deployments x 416 pods of the benchmark mix) against the 2,000-type
+#: the provisioning record replayed on the card: a 1,248-pod batch (6
+#: deployments x 208 pods of the benchmark mix) against the 2,000-type
 #: catalog. The host oracle's greedy, which a replay runs beside the tensor
 #: path, takes minutes at 4,992 pods already and grows with the batch, so
 #: the 49,920-pod records are held by their digests and not replayed; the
-#: batch was cut from 4,992 pods to keep the script under its 600 s
-#: budget once the sidecar phases joined it (PERF.md)
-REPLAY_PODS, REPLAY_DEPLOYS = 2_496, 6
+#: batch was cut from 4,992 pods to 2,496 when the sidecar phases joined
+#: the script and to 1,248 when the kube phases did, to keep it under its
+#: 600 s budget (PERF.md)
+REPLAY_PODS, REPLAY_DEPLOYS = 1_248, 6
 
 
 def fits_matrix_edges(dev) -> list:
@@ -2579,6 +3080,17 @@ def main() -> None:
     built = kernels.build()
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
            "built": built})
+    if sys.argv[1:2] == ["--operator-kube-pods"]:
+        for n in map(int, sys.argv[2:]):
+            t0 = time.perf_counter()
+            for line in operator_phase(DEVICE,
+                                       lambda: dict(kernels.LAUNCHES),
+                                       phase="operator_kube", kube=True,
+                                       n_pods=n, n_deploys=KUBE_DEPLOYS):
+                _emit(line)
+            _emit({"phase": "operator_kube_probe", "pods": n,
+                   "s": time.perf_counter() - t0})
+        return
 
     # the north-star problems: 49,920 pods x 2,000 types, cold and with
     # 5,000 existing nodes
@@ -3137,7 +3649,7 @@ def main() -> None:
         _emit(line)
 
     # 14g. the fleet simulator on the card: the four pinned clips (the JAX
-    # package's digests), then mixed-day's whole day twice
+    # package's digests), then mixed-day's whole day and its first quarter
     def recorder(path: str):
         def record_path() -> dict:
             record(path)
@@ -3159,11 +3671,27 @@ def main() -> None:
         _local_digest(runs["cold"], pods), best_s["cold"])
     _emit(line)
 
+    # 14i. the operator over the apiserver wire: store_backend="kube"
+    # against the port's EnvtestServer on 127.0.0.1 (the CRDs posted, a
+    # kubeconfig), each step driven to quiescence; every step's apiserver
+    # state equal to the same drive on the CPU
+    def record_operator_kube() -> dict:
+        record("operator_kube")
+        return paths["operator_kube"]
+    for line in operator_phase(DEVICE, record_operator_kube,
+                               phase="operator_kube", kube=True,
+                               n_pods=KUBE_PODS, n_deploys=KUBE_DEPLOYS):
+        _emit(line)
+    # 14j. the operator's CLI against such a server, as a deployment runs
+    # it: a child process on the card with a KubeLease over the wire
+    _emit(operator_kube_process_phase(DEVICE))
+
     # 15. every path launched the kernels it runs; the table counts them
     # all (B5 has no caller on any path: its launches stay 0)
     expect = {"operator": FEASIBILITY, "sidecar": FEASIBILITY,
               "sidecar_fleet": FEASIBILITY,
               "operator_sidecar": FEASIBILITY,
+              "operator_kube": FEASIBILITY,
               "sim_pinned": FEASIBILITY, "sim_mixed_day": FEASIBILITY,
               "mesh_multiprocess": FEASIBILITY[:2],
               "solve": FEASIBILITY, "solve_mesh_1x1": FEASIBILITY,

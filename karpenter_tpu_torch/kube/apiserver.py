@@ -3,11 +3,11 @@
 The in-process Store (kube/store.py) is the solver-story deviation
 (DEVIATIONS #6); this adapter is the path back to the reference's actual
 deployment model — the operator driving a live control plane through the
-generated CRDs (the JAX package's api/crds.py), the way the reference's controller-runtime
+generated CRDs (api/crds.py), the way the reference's controller-runtime
 client does (karpenter's pkg/operator/operator.go:105-206,
 kwok/main.go:33-48).
 
-Implementation is stdlib-only (urllib + ssl + http.client): CRUD maps to
+Implementation is stdlib-only (http.client + ssl + urllib): CRUD maps to
 REST verbs, status rides the /status subresource, and watch() fan-out is
 fed by background watch streams whose events are delivered on the
 caller's thread via pump_events() — keeping the deterministic
@@ -22,6 +22,8 @@ resync, state/cluster.go:96-150).
 from __future__ import annotations
 
 import base64
+import http.client
+import io
 import json
 import os
 import queue
@@ -31,7 +33,7 @@ import threading
 import urllib.error
 import urllib.parse
 import urllib.request
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 from ..logging import get_logger
 from ..utils.clock import Clock
@@ -54,6 +56,9 @@ class KubeApiStore:
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._rv = 0  # monotonic event counter (checkpoint watermark analog)
+        # one kept-alive connection per calling thread (the manager's, the
+        # event sink's, the lease renewal's)
+        self._local = threading.local()
 
     # -- construction --------------------------------------------------------
 
@@ -128,17 +133,61 @@ class KubeApiStore:
             url += "?" + query
         return url
 
+    def _connection(self) -> Tuple[http.client.HTTPConnection, bool]:
+        """This thread's kept-alive connection to the apiserver, and
+        whether an earlier call has used it."""
+        conn = getattr(self._local, "conn", None)
+        if conn is not None:
+            return conn, True
+        u = urllib.parse.urlsplit(self.base_url)
+        if u.scheme == "https":
+            conn = http.client.HTTPSConnection(
+                u.hostname, u.port, timeout=30,
+                context=self._ctx or ssl.create_default_context())
+        else:
+            conn = http.client.HTTPConnection(u.hostname, u.port, timeout=30)
+        self._local.conn = conn
+        return conn, False
+
     def _request(self, method: str, url: str, body=None):
+        """One REST call over this thread's kept-alive connection, as
+        client-go keeps its connections. A connection that fails in a call
+        is closed and never used again; the call is made once more on a new
+        one only where a connection an earlier call used was found dropped
+        by the server. A status of 400 or more raises
+        ``urllib.error.HTTPError``, a fault of the transport
+        ``urllib.error.URLError``, as ``urlopen`` does."""
         data = json.dumps(body).encode() if body is not None else None
-        req = urllib.request.Request(url, data=data, method=method)
-        req.add_header("Accept", "application/json")
+        headers = {"Accept": "application/json"}
         if data is not None:
-            req.add_header("Content-Type", "application/json")
+            headers["Content-Type"] = "application/json"
         if self._token:
-            req.add_header("Authorization", f"Bearer {self._token}")
-        with urllib.request.urlopen(req, context=self._ctx,
-                                    timeout=30) as resp:
-            payload = resp.read()
+            headers["Authorization"] = f"Bearer {self._token}"
+        u = urllib.parse.urlsplit(url)
+        target = u.path + (f"?{u.query}" if u.query else "")
+        for attempt in range(2):
+            conn, reused = self._connection()
+            try:
+                conn.request(method, target, body=data, headers=headers)
+                resp = conn.getresponse()
+                payload = resp.read()
+                break
+            except BaseException as exc:
+                # http.client leaves a connection that failed mid-call in a
+                # state in which every later call on it raises
+                conn.close()
+                self._local.conn = None
+                dropped = isinstance(exc, (http.client.RemoteDisconnected,
+                                           BrokenPipeError,
+                                           ConnectionResetError))
+                if reused and dropped and not attempt:
+                    continue
+                if isinstance(exc, OSError):
+                    raise urllib.error.URLError(exc) from exc
+                raise
+        if resp.status >= 400:
+            raise urllib.error.HTTPError(url, resp.status, resp.reason,
+                                         resp.headers, io.BytesIO(payload))
         return json.loads(payload.decode()) if payload else None
 
     # -- event posting -------------------------------------------------------

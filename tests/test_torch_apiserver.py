@@ -1,17 +1,16 @@
 """The port's kube backend over HTTP, against the reference: the port's
 ``KubeApiStore`` and ``KubeLease`` (karpenter_tpu_torch/kube/apiserver.py,
-operator/leaderelection.py) drive the JAX package's in-process apiserver
-(``karpenter_tpu.kube.envtest.EnvtestServer``, which the port does not
-copy), and the port's ``k8s_codec`` writes the same wire dicts as the
-reference's for the objects of tests/test_apiserver_adapter.py, and reads
-them back to the same objects."""
+operator/leaderelection.py) drive either package's in-process apiserver
+(``kube.envtest.EnvtestServer``: each case runs against the JAX package's
+and the port's), and the port's ``k8s_codec`` writes the same wire dicts as
+the reference's for the objects of tests/test_apiserver_adapter.py, and
+reads them back to the same objects."""
 
 import time
 
 import pytest
 
 from karpenter_tpu.kube import k8s_codec as jkc
-from karpenter_tpu.kube.envtest import EnvtestServer
 from karpenter_tpu_torch.api import labels as api_labels
 from karpenter_tpu_torch.api.nodeclaim import NodeClaim
 from karpenter_tpu_torch.api.nodepool import Budget, NodePool
@@ -138,11 +137,12 @@ def test_quantities_match():
     assert pkc.resources_to_k8s(rl) == jkc.resources_to_k8s(rl)
 
 
-# -- the port's store over the reference's apiserver ---------------------------
+# -- the port's store over either package's apiserver -------------------------
 
-@pytest.fixture
-def env_store():
-    with EnvtestServer() as srv:
+@pytest.fixture(params=ROOTS, ids=["jax-server", "port-server"])
+def env_store(request):
+    envtest = support.importlib.import_module(f"{request.param}.kube.envtest")
+    with envtest.EnvtestServer() as srv:
         store = KubeApiStore(srv.url, clock=Clock())
         store._envtest = srv
         yield store
@@ -265,7 +265,7 @@ def test_operator_provision_loop_e2e(env_store):
     assert store.list(Node), "no node materialized through the wire"
 
 
-# -- the port's lease over the reference's apiserver ---------------------------
+# -- the port's lease over either package's apiserver -------------------------
 
 @pytest.fixture
 def lease_pair(env_store):

@@ -3,7 +3,8 @@ imports jax or the JAX package — checked in a fresh interpreter whose
 import system refuses both (tests/conftest.py imports jax into every test
 process, so the check cannot run in-process), which also drives a solve,
 the loops, the operator, a solver sidecar and the fleet simulator on the
-CPU, and by reading the sources."""
+CPU, the operator over the port's own apiserver among them, and by reading
+the sources."""
 
 import os
 import re
@@ -88,6 +89,33 @@ import karpenter_tpu_torch.operator.__main__
 from karpenter_tpu_torch.kube import apiserver, k8s_codec
 assert k8s_codec.pod_from_k8s(k8s_codec.pod_to_k8s(pods[0])).name
 
+# the operator over the port's own apiserver: the CRDs posted, a small
+# burst bound over the wire; the fake provider and the durations
+import tempfile
+from karpenter_tpu_torch.api import crds, duration
+from karpenter_tpu_torch.cloudprovider.fake import (FakeCloudProvider,
+                                                    fake_instance_types)
+from karpenter_tpu_torch.kube.k8s_codec import WATCH_KINDS
+assert duration.parse_duration(duration.format_duration(3661.0)) == 3661.0
+assert len(crds.manifests()) == 2 and FakeCloudProvider().instance_types
+assert len(fake_instance_types(9)) == 9
+with tempfile.TemporaryDirectory() as tmp:
+    clock = FakeClock()
+    wire = chip_smoke.KubeWire(clock, tmp)
+    op = Operator(Options(metrics_port=0, health_probe_port=0,
+                          log_level="error", store_backend="kube",
+                          kubeconfig=wire.kubeconfig), clock=clock,
+                  device="cpu")
+    wire.attach(op.store, WATCH_KINDS)
+    wire.client.create(chip_smoke.default_pool())
+    for p in chip_smoke.bench_pods(18, 9):
+        wire.client.create(p)
+    for _ in range(8):
+        wire.step(op)
+        clock.step(1.1)
+    assert wire.counts()["bound"] >= 16
+    wire.close(op)
+
 # the solver sidecar: a server on the CPU and one session solve through
 # the port's client over a wire-chaos channel (its first attempt dropped
 # and retried), the parity probe byte-identical; then the server stopped
@@ -157,3 +185,18 @@ def test_sources_name_no_jax_or_reference_import():
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT.finditer(f.read_text())]
     assert not offenders, offenders
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The port holds a file at the same path for every module and data
+    file of the JAX package (and adds its own ops/kernels.py and CUDA
+    sources)."""
+    ref, port = REPO / "karpenter_tpu", REPO / "karpenter_tpu_torch"
+
+    def files(root):
+        return {p.relative_to(root) for p in root.rglob("*")
+                if p.is_file() and "__pycache__" not in p.parts
+                and p.suffix in (".py", ".yaml")}
+    missing = sorted(str(p) for p in files(ref) - files(port))
+    assert not missing, missing
+    assert files(port) - files(ref) == {Path("ops/kernels.py")}

@@ -25,6 +25,11 @@ import torch
 from test_torch_support import (JAX, PACK_FIELDS, PORT, assert_tensors_equal,
                                 build_problem, cpu_mesh, digest, nodepool,
                                 pkg, pod, scheduler, state_node)
+# the JAX package's precompute below fills its device series and tracer in
+# the test process (the fixtures run there only; the children never see
+# them)
+from test_torch_support import device_series_kept  # noqa: F401 (autouse)
+from test_torch_support import tracer_kept  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(REPO, "tests")

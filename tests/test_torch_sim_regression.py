@@ -108,14 +108,19 @@ def test_report_shape_is_value_free():
 def test_mixed_day_quarter_matches_the_reference():
     """mixed-day's first 21,600 s (its morning deploys, the traffic spike,
     the api rollout and the midday spot-reclaim wave) through both
-    packages: equal digests and entry counts."""
+    packages: equal digests and entry counts, the ones chip_smoke.py pins
+    for its second sim_mixed_day run."""
+    import chip_smoke
     name = "mixed-day.yaml"
     report = FleetSimulator(clipped(load_scenario, os.path.join(
         SCENARIOS_DIR, name), 21600.0), device="cpu").run()
     ref = ref_sim.FleetSimulator(clipped(ref_sim.load_scenario, os.path.join(
         REF_SCENARIOS_DIR, name), 21600.0)).run()
-    assert report["ledger_digest"] == ref["ledger_digest"]
-    assert report["ledger_entries"] == ref["ledger_entries"]
+    assert report["ledger_digest"] == ref["ledger_digest"] == \
+        chip_smoke.MIXED_DAY_CLIP_DIGEST
+    assert report["ledger_entries"] == ref["ledger_entries"] == \
+        chip_smoke.MIXED_DAY_CLIP_ENTRIES
+    assert chip_smoke.MIXED_DAY_CLIP == 21600.0
     assert report["solver"] == ref["solver"]
     assert report["events_applied"]["spot_reclaim"] == 1
 
