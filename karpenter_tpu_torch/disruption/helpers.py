@@ -17,6 +17,7 @@ from ..api.nodepool import NodePool
 from ..api.objects import Pod
 from ..api.policy import PodDisruptionBudget
 from ..events import catalog as events_catalog
+from ..obs.tracer import TRACER
 from ..provisioning.provisioner import Provisioner
 from ..state.cluster import Cluster
 from ..utils import node as node_utils
@@ -59,34 +60,40 @@ def get_candidates(cluster: Cluster, provisioner: Provisioner,
     `context` (a disruption.prefix.DisruptionSnapshot) supplies the
     pass-shared nodepool/instance-type/PDB/pod indexes so the four methods
     of one pass don't each re-list the store and re-fetch the catalog."""
-    now = cluster.clock.now()
-    if context is not None:
-        nodepools = context.all_nodepools
-        instance_types = context.it_maps
-        pdb_limits = context.pdb_limits
-        by_node = context.pods_by_node_map
-    else:
-        nodepools = {np.name: np for np in cluster.store.list(NodePool)}
-        instance_types = {
-            name: {it.name: it
-                   for it in provisioner.cloud_provider.get_instance_types(np)}
-            for name, np in nodepools.items()}
-        pdb_limits = build_pdb_limits(cluster)
-        by_node = pods_by_node(cluster)
-    out: List[Candidate] = []
-    # no deep copy here: new_candidate deep-copies the accepted nodes
-    for sn in cluster.state_nodes(deep_copy=False):
-        try:
-            cand = new_candidate(now, sn, by_node.get(sn.name(), []),
-                                 pdb_limits, nodepools, instance_types,
-                                 disrupting_provider_ids, disruption_class)
-        except CandidateError as err:
-            if recorder is not None and sn.nodeclaim is not None:
-                recorder.publish(*events_catalog.disruption_blocked(
-                    sn.name(), sn.nodeclaim.name, str(err)))
-            continue
-        if should_disrupt(cand):
-            out.append(cand)
+    with TRACER.span("disruption.candidates") as sp:
+        now = cluster.clock.now()
+        if context is not None:
+            nodepools = context.all_nodepools
+            instance_types = context.it_maps
+            pdb_limits = context.pdb_limits
+            by_node = context.pods_by_node_map
+        else:
+            nodepools = {np.name: np for np in cluster.store.list(NodePool)}
+            instance_types = {
+                name: {it.name: it for it in
+                       provisioner.cloud_provider.get_instance_types(np)}
+                for name, np in nodepools.items()}
+            pdb_limits = build_pdb_limits(cluster)
+            by_node = pods_by_node(cluster)
+        out: List[Candidate] = []
+        nodes = blocked = 0
+        # no deep copy here: new_candidate deep-copies the accepted nodes
+        for sn in cluster.state_nodes(deep_copy=False):
+            nodes += 1
+            try:
+                cand = new_candidate(now, sn, by_node.get(sn.name(), []),
+                                     pdb_limits, nodepools, instance_types,
+                                     disrupting_provider_ids,
+                                     disruption_class)
+            except CandidateError as err:
+                blocked += 1
+                if recorder is not None and sn.nodeclaim is not None:
+                    recorder.publish(*events_catalog.disruption_blocked(
+                        sn.name(), sn.nodeclaim.name, str(err)))
+                continue
+            if should_disrupt(cand):
+                out.append(cand)
+        sp.set(nodes=nodes, candidates=len(out), blocked=blocked)
     return out
 
 

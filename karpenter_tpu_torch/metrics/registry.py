@@ -414,7 +414,7 @@ SOLVER_PHASE_DURATION = REGISTRY.histogram(
     "karpenter_solver_phase_duration_seconds",
     "Per-phase solver wall clock, derived from the pass tracer's span data "
     "(phase = span name: encode.catalog, encode.groups, encode.nodes, "
-    "device.upload, compile, device.execute, pack, materialize, ...); "
+    "device.upload, device.dispatch, partition, pack, materialize, ...); "
     "sidecar-served solves add a bounded tenant label",
     ("phase", "encode_kind", "tenant"),
     buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
@@ -574,15 +574,22 @@ DEVICE_DISPATCH_SECONDS = REGISTRY.counter(
     ("executable",), max_series=64)
 DEVICE_EXECUTE_SECONDS = REGISTRY.counter(
     "karpenter_device_execute_seconds_total",
-    "Measured device completion time (block_until_ready delta after "
-    "dispatch) per executable — the accelerator half of the split; only "
-    "collected while tracing is enabled",
+    "Device time of the launches per executable, from a pair of CUDA "
+    "timing events recorded around them and read after the fetch (on the "
+    "CPU, the host time of the calls) — the accelerator half of the "
+    "split; only collected while tracing is enabled",
     ("executable",), max_series=64)
 DEVICE_MEMORY_PEAK = REGISTRY.gauge(
     "karpenter_device_memory_peak_bytes",
     "Per-device XLA memory watermark: the max memory_analysis() peak "
     "(args + temps + output) across every executable compiled so far",
     ("device",), max_series=64)
+GC_PAUSE_SECONDS = REGISTRY.counter(
+    "karpenter_gc_pause_seconds_total",
+    "Seconds the cyclic garbage collector paused a thread inside a traced "
+    "pass, by generation (the pass tracer's gc.callbacks hook; only "
+    "collected while tracing is enabled)",
+    ("generation",))
 PROFILE_ACTIVE = REGISTRY.gauge(
     "karpenter_profile_active",
     "1 while a jax.profiler device-trace session is running "

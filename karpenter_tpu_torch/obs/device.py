@@ -7,13 +7,13 @@ module splits the two:
 
 - **dispatch overhead** — host time for the launches to return (argument
   checks, the ctypes calls, the enqueue), and
-- **device time** — the host's wait for the launches to complete after
-  dispatch, as a synchronize on a CUDA event recorded on each device's
-  stream after the last launch (``LaunchTimer``; the reference's
-  ``block_until_ready`` delta). What the card ran while the host was still
-  enqueueing hides in the dispatch, so this is not the card's busy time.
-  On the CPU, where the plain versions run inside the launch calls, it is
-  the host time of those calls,
+- **device time** — from the card: a pair of timing CUDA events recorded
+  on each device's stream around the launches (``LaunchTimer``), whose
+  elapsed time is read once the fetch has completed, so reading it adds no
+  wait. It spans the first launch's start to the last one's end on the
+  card, gaps between launches included. On the CPU, where the plain
+  versions run inside the launch calls, it is the host time of those
+  calls,
 
 attributed PER LAUNCH SHAPE: the padded shape bucket that picks K1-K3's
 plans (statics, leading argument shapes, device), the port's counterpart
@@ -26,12 +26,8 @@ every output it allocates, the same on the CPU and the card. The peak
 feeds a continuous watermark gauge per device
 (``karpenter_device_memory_peak_bytes{device}``).
 
-The measured split only happens while the tracer is enabled (the same
-switch that gates every other span): with tracing off the launches stay
-asynchronous, with no event and no synchronize, and the fetch's copy
-absorbs the device time. With it on the wait moves into the
-``device.execute`` span; it is not added, because every caller fetches the
-results right after.
+The split only happens while the tracer is enabled (the same switch that
+gates every other span): with tracing off no event is recorded.
 """
 
 from __future__ import annotations
@@ -163,16 +159,23 @@ class DeviceTimeTracker:
 
 class LaunchTimer:
     """The host time of the launches made between construction and
-    ``launched()``, and the wait for them to complete after it. On each
-    CUDA device ``launched()`` records an event on its current stream, and
-    ``wait()`` synchronizes on those events and returns the host time it
-    blocked. Without a CUDA device the launches ran on the CPU inside the
-    calls, and ``wait()`` returns their host time."""
+    ``launched()``, and their time on the card. On each CUDA device a
+    timing event is recorded on its current stream at construction and
+    another at ``launched()``; ``elapsed()``, called once the fetch that
+    follows the launches has completed, returns the longest time between
+    the two on any device. Without a CUDA device the launches ran on the
+    CPU inside the calls, and ``elapsed()`` returns their host time."""
 
     def __init__(self, devices: Iterable):
         self._devices = [d for d in dict.fromkeys(devices)
                          if d.type == "cuda"]
         self._events = []
+        if self._devices:
+            import torch
+            for dev in self._devices:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(torch.cuda.current_stream(dev))
+                self._events.append([start, None])
         self._t0 = time.perf_counter()
         self.dispatch_seconds = 0.0
 
@@ -181,20 +184,23 @@ class LaunchTimer:
         self.dispatch_seconds = time.perf_counter() - self._t0
         if self._devices:
             import torch
-            for dev in self._devices:
-                end = torch.cuda.Event()
+            for dev, pair in zip(self._devices, self._events):
+                end = torch.cuda.Event(enable_timing=True)
                 end.record(torch.cuda.current_stream(dev))
-                self._events.append(end)
+                pair[1] = end
         return self.dispatch_seconds
 
-    def wait(self) -> float:
-        """Block until the launches completed; returns the device time."""
+    def elapsed(self) -> float:
+        """The launches' device seconds. Call it after the fetch: the end
+        events have completed by then, so it does not wait."""
         if not self._devices:
             return self.dispatch_seconds
-        t0 = time.perf_counter()
-        for end in self._events:
+        longest = 0.0
+        for start, end in self._events:
+            # a no-op once the fetch has completed on this stream
             end.synchronize()
-        return time.perf_counter() - t0
+            longest = max(longest, start.elapsed_time(end) * 1e-3)
+        return longest
 
 
 def device_label(device) -> str:

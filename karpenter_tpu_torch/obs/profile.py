@@ -11,6 +11,7 @@ facility is too. It owns the ONE session and exposes it two ways:
 
 The session records CUDA activity (every kernel launch and copy, with its
 device time) when the card is present, and the host's PyTorch operations
+and the pass tracer's spans (``user_annotation`` ranges, obs/tracer.py)
 always.
 
 Env-gated: a profile lands ONLY in an operator-sanctioned directory —

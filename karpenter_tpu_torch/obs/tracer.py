@@ -26,6 +26,26 @@ Completed traces land in a bounded ring, exportable as Chrome trace-event
 JSON (``chrome_trace`` — opens directly in Perfetto / chrome://tracing) via
 ``/debug/traces`` and ``python -m karpenter_tpu.obs dump``.
 
+**One clock with the device trace.** While a ``torch.profiler`` session
+records (``torch.autograd.profiler._is_profiler_enabled``, read only once
+torch has been imported: the tracer never imports it), every span also
+opens a ``record_function`` range of its own name, closed with the span (a
+mispaired exit closes the ranges of the spans it abandons too). The
+session's Chrome trace — the benchmark's traced runs, ``obs/profile.py``'s
+sessions behind ``/debug/profile`` — then carries the program's spans as
+``user_annotation`` ranges on the profiler's own clock, around the kernel
+launches each span made. With no session recording, this costs one boolean
+read per span.
+
+**The collector.** ``TRACER`` watches the cyclic garbage collector
+(``gc.callbacks``): a collection on a thread with an open trace, while the
+tracer is enabled, adds its pause to the root's ``gc_ms`` and counts itself
+in ``gc_full`` (generation 2) or ``gc_young`` (generations 0 and 1), and in
+``karpenter_gc_pause_seconds_total{generation}``. These are attributes and
+a counter, not spans, so they move no span's self time; the pause stays in
+the self time of the span it fell in too, so ``gc_ms`` overlaps the spans'
+self times and is not added to them.
+
 Metrics derive FROM spans: on trace completion every span observes into
 ``karpenter_solver_phase_duration_seconds{phase,encode_kind}``, so the
 histogram and the trace are two views of the same measurement and can
@@ -35,22 +55,42 @@ every completed trace for budget enforcement.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
+import sys
 import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
+from ..metrics.registry import GC_PAUSE_SECONDS
+
 DEFAULT_CAPACITY = 64
+
+#: torch.autograd.profiler, once something else has imported torch
+_autograd_profiler = None
+
+
+def _profiler_recording() -> bool:
+    """Whether a torch.profiler session records on this process now."""
+    global _autograd_profiler
+    prof = _autograd_profiler
+    if prof is None:
+        prof = _autograd_profiler = sys.modules.get("torch.autograd.profiler")
+        if prof is None:
+            return False
+    return prof._is_profiler_enabled
 
 
 class Span:
     """One timed stage. ``start``/``end`` are tracer-clock readings (seconds,
     perf_counter epoch by default); ``parent`` is the index of the parent
-    span within the trace (-1 for the root); ``tid`` the capturing thread."""
+    span within the trace (-1 for the root); ``tid`` the capturing thread;
+    ``_range`` its profiler range while it is open under a session."""
 
-    __slots__ = ("name", "start", "end", "attrs", "parent", "index", "tid")
+    __slots__ = ("name", "start", "end", "attrs", "parent", "index", "tid",
+                 "_range")
 
     def __init__(self, name: str, start: float, parent: int, index: int,
                  tid: int, attrs: dict):
@@ -61,6 +101,13 @@ class Span:
         self.parent = parent
         self.index = index
         self.tid = tid
+        self._range = None
+
+    def _close_range(self) -> None:
+        rng = self._range
+        if rng is not None:
+            self._range = None
+            rng.__exit__(None, None, None)
 
     @property
     def duration(self) -> float:
@@ -186,7 +233,8 @@ class Tracer:
     def _state(self):
         st = getattr(self._local, "state", None)
         if st is None:
-            # (stack of open span indices, span list, trace_id, wall epoch)
+            # (stack of open span indices, span list, trace_id, wall epoch;
+            # "gc_start" while a collection runs inside the trace)
             st = self._local.state = {"stack": [], "spans": [],
                                       "trace_id": "", "at": 0.0,
                                       "drop": False, "adopt": None}
@@ -217,6 +265,9 @@ class Tracer:
                   threading.get_ident(), dict(attrs))
         st["spans"].append(sp)
         st["stack"].append(sp.index)
+        if _profiler_recording():
+            sp._range = _autograd_profiler.record_function(name)
+            sp._range.__enter__()
         return sp
 
     def _finish(self, sp: Span) -> None:
@@ -225,9 +276,10 @@ class Tracer:
         # tolerate mispaired exits (an exception path closing out of order
         # must not wedge the thread's tracing forever): pop to this span
         while st["stack"] and st["stack"][-1] != sp.index:
-            st["stack"].pop()
+            st["spans"][st["stack"].pop()]._close_range()
         if st["stack"]:
             st["stack"].pop()
+        sp._close_range()
         if not st["stack"]:
             # a fully-mispaired exit can land here after the trace already
             # completed (empty span list / cleared id): never ring that
@@ -271,6 +323,31 @@ class Tracer:
         for sp in trace.spans:
             labels["phase"] = sp.name
             SOLVER_PHASE_DURATION.observe(sp.duration, dict(labels))
+
+    # -- the collector -------------------------------------------------------
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        """A collection's pause, charged to the trace open on the thread
+        that collects: the root's ``gc_ms``, ``gc_full`` / ``gc_young``,
+        and the pause counter by generation."""
+        if not self.enabled:
+            return
+        st = getattr(self._local, "state", None)
+        if st is None or not st["stack"]:
+            return
+        if phase == "start":
+            st["gc_start"] = self._now()
+            return
+        start = st.pop("gc_start", None)
+        if start is None:
+            return
+        pause = max(0.0, self._now() - start)
+        generation = info["generation"]
+        attrs = st["spans"][0].attrs
+        attrs["gc_ms"] = attrs.get("gc_ms", 0.0) + pause * 1e3
+        key = "gc_full" if generation == 2 else "gc_young"
+        attrs[key] = attrs.get(key, 0) + 1
+        GC_PAUSE_SECONDS.inc({"generation": str(generation)}, pause)
 
     # -- trace context -------------------------------------------------------
 
@@ -421,3 +498,4 @@ def phase_millis(trace: PassTrace) -> Dict[str, float]:
 # are per-solve and controllers per-operator, so the trace ring (like the
 # solver circuit breaker) must outlive them.
 TRACER = Tracer()
+gc.callbacks.append(TRACER._on_gc)

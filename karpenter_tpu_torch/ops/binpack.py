@@ -28,6 +28,7 @@ PyTorch versions run instead.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -415,10 +416,10 @@ def shape_summary(shape: dict) -> str:
 def _run_precompute(p: PackProblem, args, statics, device: torch.device
                     ) -> np.ndarray:
     """Launch the precompute and fetch its packed outputs. With tracing on,
-    the launches (device.dispatch) and the wait for the device
-    (device.execute) get spans of their own, attributed to the launch
-    shape in obs.device.DEVICE_TIME; with it off the fetch's copy absorbs
-    the device time, and no event or synchronize is added."""
+    the launches get a span of their own (device.dispatch), and their host
+    and device time (obs.device.LaunchTimer, read after the fetch) are
+    attributed to the launch shape in obs.device.DEVICE_TIME; with it off
+    no event is recorded."""
     from ..obs.tracer import TRACER
     if not TRACER.enabled:
         return _pack_outputs(precompute_kernel(*args, **statics)).cpu().numpy()
@@ -435,10 +436,9 @@ def _run_precompute(p: PackProblem, args, statics, device: torch.device
         timer = LaunchTimer([device])
         flat = _pack_outputs(precompute_kernel(*args, **statics))
         dispatch_s = timer.launched()
-    with TRACER.span("device.execute", executable=st.label):
-        device_s = timer.wait()
-    DEVICE_TIME.record(st, dispatch_s, device_s)
-    return flat.cpu().numpy()
+    out = flat.cpu().numpy()
+    DEVICE_TIME.record(st, dispatch_s, timer.elapsed())
+    return out
 
 
 # -- injected device-loss verdicts (utils/chaos.DeviceKiller) ----------------
@@ -936,6 +936,10 @@ class Packer:
         # domain-name tie-break order for zone selection (host parity)
         self._zone_names = np.array(p.vocab.values[p.zone_key], dtype=object)
         self.result = PackResult()
+        # milliseconds in _fill_existing, timed only while tracing is on
+        from ..obs.tracer import TRACER
+        self._timed = TRACER.enabled
+        self.existing_ms = 0.0
         self.cohorts = CohortSet(p, t, self.G)
         # per-group nonzero request columns + request-restricted catalog
         # slices, so the per-probe capacity math touches only the resources
@@ -1393,6 +1397,7 @@ class Packer:
         node individually — the hostname-topology cap derived from already-
         scheduled matching pods (0 = excluded); max_nodes > 0 limits how many
         distinct nodes may be used (hostname pod affinity: all on one)."""
+        started = time.perf_counter() if self._timed else 0.0
         placed_total = 0
         used_nodes = 0
         for n in self.exist_order:
@@ -1437,6 +1442,8 @@ class Packer:
             placed_total += fill
             remaining -= fill
             used_nodes += 1
+        if self._timed:
+            self.existing_ms += (time.perf_counter() - started) * 1e3
         return placed_total
 
     # -- main ---------------------------------------------------------------

@@ -632,13 +632,14 @@ def _run_sharded(p: binpack.PackProblem, mesh: Mesh, gather: bool = True):
     """Place, launch every slot this process owns, fetch them. Returns
     (raw outputs, padded, G, T). In a fleet, ``gather`` brings every
     process's slots to every process; without it the rows of other
-    processes' slots stay zero. With tracing on, the launches
-    (device.dispatch) and the wait for the devices (device.execute) get
-    spans of their own, attributed to the sharded launch in
-    obs.device.DEVICE_TIME."""
+    processes' slots stay zero. With tracing on, the launches get a span of
+    their own (device.dispatch), and their host and device time
+    (obs.device.LaunchTimer, read after the fetch) are attributed to the
+    sharded launch in obs.device.DEVICE_TIME."""
     from ..obs.tracer import TRACER
     args, statics, padded, G, T, Tp = _sharded_dispatch(p, mesh)
     Gp = padded.group_req.shape[0]
+    timer = None
     if not TRACER.enabled:
         launched = _launch_slots(mesh, args, statics, Gp, Tp)
     else:
@@ -650,13 +651,14 @@ def _run_sharded(p: binpack.PackProblem, mesh: Mesh, gather: bool = True):
             timer = LaunchTimer(devices)
             launched = _launch_slots(mesh, args, statics, Gp, Tp)
             dispatch_s = timer.launched()
-        with TRACER.span("device.execute", executable=st.label):
-            with kernels.device_failures(_failure_device(mesh)):
-                device_s = timer.wait()
-        DEVICE_TIME.record(st, dispatch_s, device_s)
     has_exist = statics["has_exist"]
     with TRACER.span("device.fetch"):
         fetched = _fetch(launched)
+        if timer is not None:
+            # the fetch has completed every slot's launches; a CUDA error
+            # the events surface is a KernelError, as one at the fetch is
+            with kernels.device_failures(_failure_device(mesh)):
+                DEVICE_TIME.record(st, dispatch_s, timer.elapsed())
         if gather and is_multiprocess(mesh):
             fetched = _gather_slots(
                 mesh, fetched, _slot_layouts(mesh, padded, Gp, Tp, has_exist))

@@ -478,16 +478,18 @@ class TensorScheduler:
         # port eligibility needs existing-node usage: a port occupied on a
         # live node makes its pods CONFLICTED (capped groups with per-node
         # exclusion) instead of constraint-free
-        if self.state_nodes:
-            usages = [sn.host_port_usage() for sn in self.state_nodes]
+        with TRACER.span("partition") as psp:
+            if self.state_nodes:
+                usages = [sn.host_port_usage() for sn in self.state_nodes]
 
-            def port_occupied(triples):
-                return any(u.conflicts_triples(triples) for u in usages)
-        else:
-            port_occupied = lambda triples: False  # noqa: E731
-        groups, leftover, reason = partition_pods(
-            pods, prebuckets=prebuckets, port_occupied=port_occupied,
-            breakdown=self._breakdown)
+                def port_occupied(triples):
+                    return any(u.conflicts_triples(triples) for u in usages)
+            else:
+                port_occupied = lambda triples: False  # noqa: E731
+            groups, leftover, reason = partition_pods(
+                pods, prebuckets=prebuckets, port_occupied=port_occupied,
+                breakdown=self._breakdown)
+            psp.set(groups=len(groups), leftover=len(leftover))
         self.partition = (sum(g.count for g in groups), len(leftover))
         if not groups:
             return self._host_solve(pods, reason)
@@ -1317,20 +1319,6 @@ class TensorScheduler:
                 ps.tensors_memo = (memo_tok, tensors)
                 pcs.set(reused=ps.last["precompute"])
 
-        # nodepool limits (scaled), minus existing node capacity per pool
-        limits: List[Optional[dict]] = []
-        for nct in templates:
-            np_obj = next(p for p in self.nodepools if p.name == nct.nodepool_name)
-            if not np_obj.spec.limits:
-                limits.append(None)
-                continue
-            rem = dict(np_obj.spec.limits)
-            for sn in self.state_nodes:
-                if sn.labels().get(api_labels.NODEPOOL_LABEL_KEY) == nct.nodepool_name:
-                    rem = res.subtract(rem, sn.capacity())
-            limits.append({k: enc.scale_capacity(k, v) for k, v in rem.items()})
-        limit_resources = sorted({k for lm in limits if lm for k in lm})
-
         Z = len(problem.zone_values)
         zone_names = vocab.values[zone_key]
         exist_counts = host_total = None
@@ -1358,28 +1346,44 @@ class TensorScheduler:
                 izc, exist_counts, host_total = self.cluster_topology_counts(
                     groups, zone_names, {p.uid for p in pods})
 
-        sn_order = sorted(range(len(self.state_nodes)),
-                          key=lambda i: (not self.state_nodes[i].initialized(),
-                                         self.state_nodes[i].name()))
-        if exist_counts is not None:
-            exist_counts = pad_exist_counts(problem, exist_counts)
-        vol_group_counts, vol_node_remaining = \
-            self._volume_limit_state(groups)
-        group_ports = None
-        exist_port_block = None
-        if any(g.host_ports for g in groups):
-            group_ports = [g.host_ports for g in groups]
-            if self.state_nodes:
-                # indexed by the problem's exist-node order (= state_nodes
-                # position, the space _fill_existing's node_caps[n] uses)
-                exist_port_block = np.zeros(
-                    (len(groups), len(self.state_nodes)), dtype=bool)
-                for gi, gp in enumerate(group_ports):
-                    if not gp:
-                        continue
-                    for ni, sn in enumerate(self.state_nodes):
-                        exist_port_block[gi, ni] = \
-                            sn.host_port_usage().conflicts_triples(gp)
+        # the pack's inputs from the cluster: the nodepools' remaining
+        # limits, the existing nodes' order, their volume and port state
+        with TRACER.span("pack.inputs", nodes=len(self.state_nodes)):
+            # nodepool limits (scaled), minus existing node capacity per pool
+            limits: List[Optional[dict]] = []
+            for nct in templates:
+                np_obj = next(p for p in self.nodepools if p.name == nct.nodepool_name)
+                if not np_obj.spec.limits:
+                    limits.append(None)
+                    continue
+                rem = dict(np_obj.spec.limits)
+                for sn in self.state_nodes:
+                    if sn.labels().get(api_labels.NODEPOOL_LABEL_KEY) == nct.nodepool_name:
+                        rem = res.subtract(rem, sn.capacity())
+                limits.append({k: enc.scale_capacity(k, v) for k, v in rem.items()})
+            limit_resources = sorted({k for lm in limits if lm for k in lm})
+            sn_order = sorted(range(len(self.state_nodes)),
+                              key=lambda i: (not self.state_nodes[i].initialized(),
+                                             self.state_nodes[i].name()))
+            if exist_counts is not None:
+                exist_counts = pad_exist_counts(problem, exist_counts)
+            vol_group_counts, vol_node_remaining = \
+                self._volume_limit_state(groups)
+            group_ports = None
+            exist_port_block = None
+            if any(g.host_ports for g in groups):
+                group_ports = [g.host_ports for g in groups]
+                if self.state_nodes:
+                    # indexed by the problem's exist-node order (= state_nodes
+                    # position, the space _fill_existing's node_caps[n] uses)
+                    exist_port_block = np.zeros(
+                        (len(groups), len(self.state_nodes)), dtype=bool)
+                    for gi, gp in enumerate(group_ports):
+                        if not gp:
+                            continue
+                        for ni, sn in enumerate(self.state_nodes):
+                            exist_port_block[gi, ni] = \
+                                sn.host_port_usage().conflicts_triples(gp)
         warm = None
         if self.problem_state is not None:
             warm = self.problem_state.warm_start(
@@ -1416,6 +1420,7 @@ class TensorScheduler:
                                         exist_port_block=exist_port_block,
                                         warm=warm)
                 pr = packer.pack()
+                psp.set(existing_ms=packer.existing_ms)
             if self.problem_state is not None:
                 self.problem_state.finish_pack(warm)
                 psp.set(warm=self.problem_state.last["warm"],

@@ -81,8 +81,8 @@ SUBSYSTEM_SPANS = {
                                    "disruption.snapshot",
                                    "disruption.encode", "disruption.loo",
                                    "disruption.mnloo"),
-    "device": ("device.upload", "device.dispatch", "device.execute",
-               "device.fetch", "compile"),
+    "device": ("device.upload", "device.dispatch", "device.fetch",
+               "compile"),
     "wire": ("sidecar.rpc", "sidecar.queue"),
 }
 

@@ -572,9 +572,9 @@ def test_mesh_precompute_on_one_card_matches_cpu():
 
 
 def test_launch_timer_device_time_is_the_wait_after_dispatch():
-    """LaunchTimer's device time is the host's wait for the launches after
-    ``launched()``: a spin enqueued before it is waited for there, and a
-    wait for work already done is short."""
+    """LaunchTimer's device time is the card's, from its timing events: a
+    spin enqueued between them counts in full though ``launched()``
+    returns at once, and a host wait after them does not count."""
     import time
 
     from karpenter_tpu_torch.obs.device import LaunchTimer
@@ -583,10 +583,12 @@ def test_launch_timer_device_time_is_the_wait_after_dispatch():
     timer = LaunchTimer([dev])
     torch.cuda._sleep(200_000_000)  # about 0.1 s of spinning
     dispatch = timer.launched()
-    waited = timer.wait()
-    assert dispatch < 0.05 < waited, (dispatch, waited)
+    torch.cuda.synchronize()        # the fetch, in a real caller
+    device_s = timer.elapsed()
+    assert dispatch < 0.05 < device_s, (dispatch, device_s)
     timer = LaunchTimer([dev])
     torch.cuda._sleep(1000)
     timer.launched()
     time.sleep(0.05)
-    assert timer.wait() < 0.01
+    torch.cuda.synchronize()
+    assert timer.elapsed() < 0.01

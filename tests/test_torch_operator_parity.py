@@ -35,21 +35,24 @@ WALL_TIMED = (
     "karpenter_solver_phase_duration_seconds",
     "karpenter_voluntary_disruption_decision_evaluation_duration_seconds",
 )
-#: counters of host seconds (the fallback ledger's tensor-path cost), and
-#: a gauge of the whole process: the subscribers of every live state plane,
-#: other operators' planes that the garbage collector has not reached yet
-#: included
+#: counters of host seconds (the fallback ledger's tensor-path cost, the
+#: port's collector pauses inside traced passes), and a gauge of the whole
+#: process: the subscribers of every live state plane, other operators'
+#: planes that the garbage collector has not reached yet included
 NOT_COMPARED = ("karpenter_fallback_tensor_seconds_total",
+                "karpenter_gc_pause_seconds_total",
                 "karpenter_state_plane_subscribers")
 #: families and samples of each package's own device programs (the JAX
-#: package's jit dispatches, compile cache and compile phase, the port's
-#: kernel launches): what runs on the device differs by design, the
-#: decisions do not
+#: package's jit dispatches, compile cache, compile phase and its wait for
+#: the device, device.execute, the port's kernel launches): what runs on
+#: the device differs by design, the decisions do not
 DEVICE_OWN = (
     "karpenter_device_", "karpenter_solver_compile_cache_",
     "karpenter_solver_device_",
 )
-DEVICE_OWN_LABELS = ('phase="compile"',)
+DEVICE_OWN_LABELS = ('phase="compile"', 'phase="device.execute"')
+#: samples of the stage spans only the port's tracer has
+PORT_OWN_LABELS = ('phase="partition"', 'phase="pack.inputs"')
 
 
 def mod(root: str, name: str):
@@ -59,14 +62,16 @@ def mod(root: str, name: str):
 def exposition(reg) -> list:
     """The sample lines of every family, sorted (series order within a
     family is not part of the format), with the wall-timed histograms cut
-    to their counts and each package's device families left out."""
+    to their counts and each package's device families and own spans left
+    out."""
     out = []
     for line in reg.expose().splitlines():
         if line.startswith("#"):
             continue
         name = line.split("{", 1)[0].split(" ", 1)[0]
         if name.startswith(DEVICE_OWN) or name in NOT_COMPARED \
-                or any(label in line for label in DEVICE_OWN_LABELS):
+                or any(label in line
+                       for label in DEVICE_OWN_LABELS + PORT_OWN_LABELS):
             continue
         if name.startswith(WALL_TIMED) and not name.endswith("_count"):
             continue
