@@ -700,6 +700,9 @@ class CohortSet:
 # accumulate them without limit
 MAX_SEED_CHECKPOINTS = 12
 
+# candidates in the existing-node fill's first block; each next block doubles
+EXIST_BLOCK = 32
+
 
 @dataclass
 class PackCheckpoint:
@@ -900,6 +903,10 @@ class Packer:
                             else np.zeros((self.G, self.Z), dtype=np.int64))
         self.exist_order = exist_order if exist_order is not None else (
             list(range(p.exist_avail.shape[0])) if p.exist_avail is not None else [])
+        # the fill's order as an index array, and each such node's zone
+        self._exist_idx = np.asarray(self.exist_order, dtype=np.int64)
+        self._exist_zone_ord = (p.exist_zone[self._exist_idx]
+                                if p.exist_zone is not None else None)
         self.exist_avail = (p.exist_avail.copy() if p.exist_avail is not None
                             else np.zeros((0, p.group_req.shape[1]), dtype=np.int64))
         # scheduled cluster pods matching each group's hostname-level
@@ -936,10 +943,12 @@ class Packer:
         # domain-name tie-break order for zone selection (host parity)
         self._zone_names = np.array(p.vocab.values[p.zone_key], dtype=object)
         self.result = PackResult()
-        # milliseconds in _fill_existing, timed only while tracing is on
+        # milliseconds in _fill_existing and the nodes whose cap it
+        # computed, counted only while tracing is on
         from ..obs.tracer import TRACER
         self._timed = TRACER.enabled
         self.existing_ms = 0.0
+        self.existing_scanned = 0
         self.cohorts = CohortSet(p, t, self.G)
         # per-group nonzero request columns + request-restricted catalog
         # slices, so the per-probe capacity math touches only the resources
@@ -1396,55 +1405,89 @@ class Packer:
         """Pack into live nodes. node_caps[n] (when given) hard-caps each
         node individually — the hostname-topology cap derived from already-
         scheduled matching pods (0 = excluded); max_nodes > 0 limits how many
-        distinct nodes may be used (hostname pod affinity: all on one)."""
+        distinct nodes may be used (hostname pod affinity: all on one).
+
+        First fit in exist_order, a block of nodes at a time: a node occurs
+        once in the order, so its cap within one call depends on its own
+        room alone, and only ``remaining`` carries from node to node (a
+        prefix sum). Blocks start at EXIST_BLOCK candidates and double, so
+        a fill that finds its room among the first nodes reads few."""
         started = time.perf_counter() if self._timed else 0.0
         placed_total = 0
-        used_nodes = 0
-        for n in self.exist_order:
-            if remaining <= 0:
-                break
-            if max_nodes and used_nodes >= max_nodes:
-                break
-            if not self.t.exist_ok[g, n]:
-                continue
-            if zone is not None and (self.p.exist_zone is None
-                                     or self.p.exist_zone[n] != zone):
-                continue
-            req = self.p.group_req[g]
-            with np.errstate(divide="ignore"):
-                per = np.where(req > 0, self.exist_avail[n] // np.maximum(req, 1),
-                               INT32_MAX)
-            cap = int(per.min()) if per.size else 0
-            if per_node_cap:
-                cap = min(cap, per_node_cap)
-            if node_caps is not None:
-                cap = min(cap, int(node_caps[n]))
+        req = self.p.group_req[g]
+        if (remaining > 0 and req.size and self._exist_idx.size
+                and (zone is None or self._exist_zone_ord is not None)):
+            ok = self.t.exist_ok[g, self._exist_idx]
+            if zone is not None:
+                ok &= self._exist_zone_ord == zone
+            cand = self._exist_idx[ok]
+            nz, rv = self._req_nz[g], self._req_vals[g]
             vol_counts = (self.vol_group_counts[g]
                           if self.vol_group_counts is not None else None)
-            vol_rem = None
-            if vol_counts:
-                vol_rem = (self.vol_node_remaining[n]
-                           if self.vol_node_remaining is not None
-                           and n < len(self.vol_node_remaining) else None)
-                if vol_rem:
-                    cap = min(cap, min(
-                        (vol_rem[d] // c for d, c in vol_counts.items()
-                         if d in vol_rem), default=INT32_MAX))
-            fill = min(cap, remaining)
-            if fill <= 0:
-                continue
-            if vol_counts and vol_rem:
-                for d, c in vol_counts.items():
-                    if d in vol_rem:
-                        vol_rem[d] -= c * fill
-            self.exist_avail[n] = self.exist_avail[n] - req * fill
-            self.result.existing.setdefault(n, []).append((g, fill))
-            placed_total += fill
-            remaining -= fill
-            used_nodes += 1
+            used_nodes = 0
+            lo, size = 0, EXIST_BLOCK
+            while (lo < cand.size and remaining > 0
+                   and not (max_nodes and used_nodes >= max_nodes)):
+                nodes = cand[lo:lo + size]
+                lo += size
+                size *= 2
+                if self._timed:
+                    self.existing_scanned += nodes.size
+                if nz.size:
+                    cap = (self.exist_avail[nodes[:, None], nz] // rv).min(axis=1)
+                else:
+                    cap = np.full(nodes.size, INT32_MAX, np.int64)
+                if per_node_cap:
+                    cap = np.minimum(cap, per_node_cap)
+                if node_caps is not None:
+                    cap = np.minimum(cap, node_caps[nodes])
+                if vol_counts:
+                    cap = np.minimum(cap, self._vol_caps(vol_counts, nodes))
+                keep = cap > 0
+                nodes, cap = nodes[keep], cap[keep]
+                if max_nodes:
+                    nodes, cap = (nodes[:max_nodes - used_nodes],
+                                  cap[:max_nodes - used_nodes])
+                # clipping at remaining keeps the prefix sum small and
+                # changes no fill: past a clipped node nothing remains
+                cap = np.minimum(cap, remaining)
+                fill = np.minimum(cap, remaining - (np.cumsum(cap) - cap))
+                k = int(np.count_nonzero(fill > 0))   # a prefix: caps > 0
+                nodes, fill = nodes[:k], fill[:k]
+                self.exist_avail[nodes] -= fill[:, None] * req
+                fills = fill.tolist()
+                for n, f in zip(nodes.tolist(), fills):
+                    if vol_counts:
+                        vol_rem = self._vol_budget(n)
+                        if vol_rem:
+                            for d, c in vol_counts.items():
+                                if d in vol_rem:
+                                    vol_rem[d] -= c * f
+                    self.result.existing.setdefault(n, []).append((g, f))
+                placed = sum(fills)
+                placed_total += placed
+                remaining -= placed
+                used_nodes += k
         if self._timed:
             self.existing_ms += (time.perf_counter() - started) * 1e3
         return placed_total
+
+    def _vol_budget(self, n: int) -> Optional[dict]:
+        """Node n's remaining CSI attach slots per limited driver, or None
+        for a node without limits."""
+        rem = self.vol_node_remaining
+        return rem[n] if rem is not None and n < len(rem) else None
+
+    def _vol_caps(self, vol_counts: dict, nodes: np.ndarray) -> np.ndarray:
+        """Pods of a group claiming vol_counts per pod that each of ``nodes``
+        can still attach; no cap (int64 max) where a node has no budget."""
+        out = np.full(nodes.size, np.iinfo(np.int64).max, np.int64)
+        for i, n in enumerate(nodes.tolist()):
+            vol_rem = self._vol_budget(n)
+            if vol_rem:
+                out[i] = min((vol_rem[d] // c for d, c in vol_counts.items()
+                              if d in vol_rem), default=INT32_MAX)
+        return out
 
     # -- main ---------------------------------------------------------------
 

@@ -1420,7 +1420,8 @@ class TensorScheduler:
                                         exist_port_block=exist_port_block,
                                         warm=warm)
                 pr = packer.pack()
-                psp.set(existing_ms=packer.existing_ms)
+                psp.set(existing_ms=packer.existing_ms,
+                        existing_scanned=packer.existing_scanned)
             if self.problem_state is not None:
                 self.problem_state.finish_pack(warm)
                 psp.set(warm=self.problem_state.last["warm"],

@@ -3,6 +3,7 @@ wrappers on the CPU, i.e. their plain PyTorch versions) against the JAX
 package's on the same encoded problem, carried across with
 problem_from_numpy. All outputs are bool or integer: equality is exact."""
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 from karpenter_tpu.ops import binpack as jbinpack
 from karpenter_tpu_torch.ops import binpack as tbinpack
 from karpenter_tpu_torch.ops import kernels
+from karpenter_tpu_torch.ops.binpack import INT32_MAX
 
 from test_torch_support import (JAX, PORT, assert_tensors_equal,
                                 bench_workload, build_problem, mini_workload,
@@ -198,3 +200,110 @@ def test_entry_points_refuse_missing_cuda(problems, monkeypatch):
         TensorScheduler
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TensorScheduler([], {})
+
+
+# -- the pack's existing-node fill -------------------------------------------
+
+FILL_CASES = {
+    "plain": {},
+    "zone": {"zone": True},
+    "exist_zone_none": {"zone": True, "no_exist_zone": True},
+    "node_caps": {"node_caps": True},
+    "per_node_cap": {"per_node_cap": True},
+    "max_nodes_1": {"max_nodes": 1},
+    "zero_request": {"zero_request": True},
+    "negative_room": {"negative": True},
+    "csi": {"csi": True},
+    "order_subset_permuted": {"subset": True},
+    "longer_than_a_block": {"long": True},
+    "fills_in_turn": {"calls": 16, "zone": True, "node_caps": True,
+                      "per_node_cap": True, "csi": True, "subset": True,
+                      "negative": True},
+}
+
+
+def _fill_packers(base, tensors, case, rng, n_nodes=400):
+    """Two port packers over the same seeded nodes, requests and budgets:
+    the JAX package's fill runs on the first, the port's on the second."""
+    G, R = base.group_req.shape
+    Z = len(base.zone_values)
+    req = rng.integers(0, 4, (G, R))
+    req[np.arange(G), rng.integers(0, R, G)] += 1    # each asks for some
+    if case.get("zero_request"):
+        req[0] = 0
+    lo, hi = (1, 6) if case.get("long") else (-4 if case.get("negative")
+                                              else 0, 40)
+    avail = rng.integers(lo, hi, (n_nodes, R))
+    zones = None if case.get("no_exist_zone") else \
+        rng.integers(-1, Z, n_nodes).astype(np.int32)
+    p = dataclasses.replace(base, group_req=req, exist_avail=avail,
+                            exist_zone=zones)
+    t = dataclasses.replace(
+        tensors, exist_ok=rng.random((G, n_nodes)) < 0.8,
+        exist_cap=np.zeros((G, n_nodes), np.int32))
+    order = rng.permutation(n_nodes)
+    if case.get("subset"):
+        order = order[:n_nodes * 2 // 3]
+    vol_counts = vol_rem = None
+    if case.get("csi"):
+        vol_counts = [None if g % 3 == 0 else
+                      {"ebs": 1 + g % 2} if g % 3 == 1 else
+                      {"ebs": 1, "efs": 2} for g in range(G)]
+        vol_rem = []
+        for n in range(n_nodes - 25):   # the last nodes have no budget
+            kind = n % 4
+            vol_rem.append(None if kind == 0 else {} if kind == 1 else
+                           {"gcs": 9} if kind == 2 else
+                           {"ebs": int(rng.integers(0, 30)),
+                            "efs": int(rng.integers(0, 30))})
+    return [tbinpack.Packer(p, t, [None] * G, [None] * base.it_alloc.shape[0],
+                            [], exist_order=order.tolist(),
+                            vol_group_counts=vol_counts,
+                            vol_node_remaining=copy.deepcopy(vol_rem))
+            for _ in range(2)]
+
+
+def _fill_args(case, rng, G, Z, n_nodes):
+    zone = int(rng.integers(0, Z)) if case.get("zone") and \
+        rng.random() < 0.7 else None
+    per_node_cap = int(rng.integers(1, 5)) if case.get("per_node_cap") \
+        and rng.random() < 0.7 else 0
+    node_caps = None
+    if case.get("node_caps") and rng.random() < 0.8:
+        node_caps = rng.choice([0, 1, 2, 7, INT32_MAX], n_nodes)
+    remaining = int(rng.integers(1, 3000 if case.get("long") else 400))
+    return (int(rng.integers(0, G)), remaining, zone, per_node_cap,
+            node_caps, case.get("max_nodes", 0))
+
+
+@pytest.mark.parametrize("name", sorted(FILL_CASES))
+def test_block_fill_equals_the_node_loop(problems, name):
+    """Packer._fill_existing's block scan places exactly what the JAX
+    package's per-node loop places on the same packer state: the same
+    count, room left, placements in the same order and CSI budgets, on
+    seeded packers and across fills in turn."""
+    case = FILL_CASES[name]
+    _, _, base = problems["mini"]
+    tensors = tbinpack.precompute(base, device="cpu")
+    G, Z, n_nodes = base.group_req.shape[0], len(base.zone_values), 400
+    widest = total = 0
+    for seed in range(6):
+        rng = np.random.default_rng([seed, len(name)])
+        want, got = _fill_packers(base, tensors, case, rng, n_nodes)
+        for _ in range(case.get("calls", 3)):
+            args = _fill_args(case, rng, G, Z, n_nodes)
+            if case.get("zero_request") and rng.random() < 0.5:
+                args = (0,) + args[1:]
+            before = sum(map(len, want.result.existing.values()))
+            placed = jbinpack.Packer._fill_existing(want, *args)
+            assert got._fill_existing(*args) == placed
+            np.testing.assert_array_equal(got.exist_avail, want.exist_avail)
+            assert list(got.result.existing.items()) == \
+                list(want.result.existing.items())
+            assert got.vol_node_remaining == want.vol_node_remaining
+            widest = max(widest,
+                         sum(map(len, want.result.existing.values())) - before)
+            total += placed
+    assert total > 0
+    if name == "longer_than_a_block":
+        assert widest > 3 * tbinpack.EXIST_BLOCK   # past the second block

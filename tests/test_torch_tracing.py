@@ -1,8 +1,9 @@
 """The port's stage spans and counters (karpenter_tpu_torch.obs.tracer), on
 the CPU: the solve's ``partition`` span, ``get_candidates``'s
 ``disruption.candidates``, the collector's pauses on the trace's root, the
-pack's inputs and its existing-node fill time on the ``pack`` span, and the
-spans as ``user_annotation`` ranges of a ``torch.profiler`` session."""
+pack's inputs and its existing-node fill time and scan on the ``pack``
+span, and the spans as ``user_annotation`` ranges of a ``torch.profiler``
+session."""
 
 import gc
 import json
@@ -126,7 +127,15 @@ def test_no_collection_is_charged_outside_a_trace_or_with_the_tracer_off():
 # -- the pack's existing-node fill ------------------------------------------
 
 @pytest.mark.parametrize("shards", [1, 4])
-def test_pack_span_carries_the_existing_fill_time(shards):
+def test_pack_span_carries_the_existing_fill_time(shards, monkeypatch):
+    from karpenter_tpu_torch.ops import binpack
+    calls = []
+    fill = binpack.Packer._fill_existing
+
+    def counted(packer, *a, **kw):
+        calls.append(len(packer.exist_order))
+        return fill(packer, *a, **kw)
+    monkeypatch.setattr(binpack.Packer, "_fill_existing", counted)
     if shards == 1:
         ts, results, pods = _mini_solve()
     else:
@@ -142,10 +151,13 @@ def test_pack_span_carries_the_existing_fill_time(shards):
     if shards == 1:
         assert any(en.pods for en in results.existing_nodes)
         assert 0.0 < pack.attrs["existing_ms"] < pack.duration * 1e3
+        # the nodes whose cap a fill computed, at most all nodes a call
+        assert 0 < pack.attrs["existing_scanned"] <= sum(calls)
     else:
         # no existing node to fill: the span carries no fill time
         assert pack.attrs["sharded"] == shards
         assert "existing_ms" not in pack.attrs
+        assert "existing_scanned" not in pack.attrs
         assert not results.existing_nodes and results.new_nodeclaims
 
 
@@ -158,7 +170,8 @@ def test_pack_is_not_timed_with_the_tracer_off():
 
     def kept(packer, *a, **kw):
         out = pack(packer, *a, **kw)
-        seen.append((packer._timed, packer.existing_ms, out))
+        seen.append((packer._timed, packer.existing_ms,
+                     packer.existing_scanned, out))
         return out
     saved = TRACER.enabled
     try:
@@ -168,8 +181,8 @@ def test_pack_is_not_timed_with_the_tracer_off():
     finally:
         binpack.Packer.pack = pack
         TRACER.enabled = saved
-    ((timed, existing_ms, out),) = seen
-    assert not timed and existing_ms == 0.0
+    ((timed, existing_ms, scanned, out),) = seen
+    assert not timed and existing_ms == 0.0 and scanned == 0
     assert out.existing    # the fill ran, untimed
 
 
