@@ -12,6 +12,8 @@ import math
 from dataclasses import dataclass, field
 from typing import Iterable, List, Optional
 
+import numpy as np
+
 from ..api import labels as api_labels
 from ..scheduling.requirement import IN, Requirement
 from ..scheduling.requirements import ALLOW_UNDEFINED_WELL_KNOWN, Requirements
@@ -73,6 +75,77 @@ class Offerings(list):
             if od:
                 return od.most_expensive().price
         return MAX_PRICE
+
+
+class WorstLaunchPrices:
+    """``Offerings.worst_launch_price`` of every type of one catalog, one
+    [T] vector per distinct set of offerings that a requirement set allows.
+
+    The worst launch price reads only which of a type's available
+    offerings the requirements are compatible with, and which of those are
+    spot or on-demand. A catalog's offerings carry few distinct requirement
+    sets (a zone and a capacity type each), so compatibility is worked out
+    once per distinct set, and each vector is the masked maximum of the
+    offerings' own prices: the floats the per-type loop returns."""
+
+    def __init__(self, catalog: Iterable[InstanceType]):
+        self.catalog = list(catalog)
+        index: dict = {}
+        self._sets: List[Requirements] = []
+        rows, sets, prices = [], [], []
+        for t, it in enumerate(self.catalog):
+            for o in it.offerings:
+                if not o.available:
+                    continue
+                key = frozenset(o.requirements.values())
+                s = index.get(key)
+                if s is None:
+                    s = index[key] = len(self._sets)
+                    self._sets.append(o.requirements)
+                rows.append(t)
+                sets.append(s)
+                prices.append(o.price)
+        self._type = np.array(rows, dtype=np.int64)
+        self._set = np.array(sets, dtype=np.int64)
+        self._price = np.array(prices, dtype=np.float64)
+        self._spot = np.array([SPOT_REQUIREMENT.is_compatible(
+            r, ALLOW_UNDEFINED_WELL_KNOWN) for r in self._sets], dtype=bool)
+        self._on_demand = np.array([ON_DEMAND_REQUIREMENT.is_compatible(
+            r, ALLOW_UNDEFINED_WELL_KNOWN) for r in self._sets], dtype=bool)
+        self._vectors: dict = {}
+        self.built = 0  # vectors built so far
+
+    def vector(self, reqs: Requirements):
+        """[T] worst launch prices under ``reqs``, memoized per allowed set."""
+        ct = reqs.get(api_labels.CAPACITY_TYPE_LABEL_KEY)
+        key = (ct.has(api_labels.CAPACITY_TYPE_SPOT),
+               ct.has(api_labels.CAPACITY_TYPE_ON_DEMAND),
+               tuple(reqs.is_compatible(r, ALLOW_UNDEFINED_WELL_KNOWN)
+                     for r in self._sets))
+        out = self._vectors.get(key)
+        if out is None:
+            out = self._vectors[key] = self._build(*key)
+            self.built += 1
+        return out
+
+    def _build(self, spot: bool, on_demand: bool, allowed: tuple):
+        """Spot preferred, else on-demand, else MAX_PRICE (types.go:292-310)."""
+        T = len(self.catalog)
+        allowed = np.array(allowed, dtype=bool)
+        out = np.full(T, MAX_PRICE, dtype=np.float64)
+        done = np.zeros(T, dtype=bool)
+        for wanted, kind in ((spot, self._spot), (on_demand, self._on_demand)):
+            if not wanted:
+                continue
+            take = (allowed & kind)[self._set]
+            worst = np.full(T, -np.inf, dtype=np.float64)
+            np.maximum.at(worst, self._type[take], self._price[take])
+            has = np.zeros(T, dtype=bool)
+            has[self._type[take]] = True
+            fill = has & ~done
+            out[fill] = worst[fill]
+            done |= has
+        return out
 
 
 @dataclass

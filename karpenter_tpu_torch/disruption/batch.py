@@ -49,6 +49,21 @@ NEEDS_SIM = "sim"    # row inexpressible in the batched math: probe to know
 class LooVerdict:
     kind: str
     reason: str = ""  # decide()-shaped reason for REJECT rows
+    # the disruption.loo count the row adds to; "" counts a REJECT as
+    # rejected and a NEEDS_SIM as needs_sim, and a WIN must name its own
+    tally: str = ""
+
+
+TALLIES = ("won_delete", "won_replace", "rejected", "spot_floor", "needs_sim")
+
+
+def _tally(v: LooVerdict) -> str:
+    if v.tally:
+        return v.tally
+    if v.kind == WIN:
+        raise ValueError("a WIN verdict names its tally: won_delete or "
+                         "won_replace")
+    return "needs_sim" if v.kind == NEEDS_SIM else "rejected"
 
 
 class _GroupView:
@@ -88,9 +103,16 @@ class LeaveOneOutEngine:
         self.sim_classes: Dict[str, int] = {}
         self._worst_memo: Dict[tuple, np.ndarray] = {}
         self._reqs_memo: Dict[tuple, object] = {}
+        self._prices = None
         from ..obs.tracer import TRACER
-        with TRACER.span("disruption.loo", candidates=len(self.candidates)):
+        with TRACER.span("disruption.loo",
+                         candidates=len(self.candidates)) as sp:
             self._verdicts = self._classify()
+            if TRACER.enabled:
+                counts = dict.fromkeys(TALLIES, 0)
+                for v in self._verdicts:
+                    counts[_tally(v)] += 1
+                sp.set(**counts)
         self.stats["classified"] = sum(
             1 for v in self._verdicts if v.kind != NEEDS_SIM)
         self.stats["needs_sim"] = sum(
@@ -195,7 +217,8 @@ class LeaveOneOutEngine:
             if jj < ep.size:
                 thr = min(thr, float(view.cum[ep[jj]] - cap_c))
         if k <= thr and k <= total_i:
-            return LooVerdict(WIN)  # delete: zero new nodes, no errors
+            # delete: zero new nodes, no errors
+            return LooVerdict(WIN, tally="won_delete")
         if k > thr:
             return LooVerdict(REJECT, (
                 "not all pods would schedule, would schedule against "
@@ -230,18 +253,33 @@ class LeaveOneOutEngine:
             self._reqs_memo[key] = reqs
         return reqs
 
+    def _price_vectors(self):
+        """The catalog's worst-launch-price vectors, built on first use."""
+        if self._prices is None:
+            from ..cloudprovider.types import WorstLaunchPrices
+            self._prices = WorstLaunchPrices(self.enc.catalog)
+        return self._prices
+
     def _worst_prices(self, g: int, m: int, spot_pinned: bool) -> np.ndarray:
         """[T] worst launch price per catalog instance type under the
         replacement's combined requirements — the exact
         Offerings.worst_launch_price the price filter uses
-        (nodeclaim.go:136-145), vectorized once per (group, template)."""
+        (nodeclaim.go:136-145). Every (group, template) whose requirements
+        allow the same offerings shares one vector. The memo by (group,
+        template) sits in front of the vectors' own, which is keyed by
+        the offering sets allowed: working that key out costs a
+        compatibility check per offering set, and the classifier asks
+        once per candidate."""
         key = (g, m, spot_pinned)
         worst = self._worst_memo.get(key)
         if worst is None:
-            reqs = self._combined_reqs(g, m, spot_pinned)
-            worst = np.array(
-                [it.offerings.available().worst_launch_price(reqs)
-                 for it in self.enc.catalog], dtype=np.float64)
+            from ..obs.tracer import TRACER
+            with TRACER.span("disruption.prices") as sp:
+                prices = self._price_vectors()
+                built = prices.built
+                worst = prices.vector(
+                    self._combined_reqs(g, m, spot_pinned))
+                sp.set(vectors=prices.built - built, types=worst.size)
             self._worst_memo[key] = worst
         return worst
 
@@ -268,12 +306,12 @@ class LeaveOneOutEngine:
                     "SpotToSpotConsolidation requires "
                     f"{MIN_SPOT_TO_SPOT_INSTANCE_TYPES} cheaper instance "
                     "type options than the current candidate to "
-                    f"consolidate, got {cheaper}"))
-            return LooVerdict(WIN)
+                    f"consolidate, got {cheaper}"), tally="spot_floor")
+            return LooVerdict(WIN, tally="won_replace")
         worst = self._worst_prices(g, m0, False)
         if not bool((it_set & (worst < price)).any()):
             return LooVerdict(REJECT, "Can't replace with a cheaper node")
-        return LooVerdict(WIN)
+        return LooVerdict(WIN, tally="won_replace")
 
 
 class MultiNodeLooEngine:
@@ -317,6 +355,7 @@ class MultiNodeLooEngine:
         self.stats = {"classified": 0, "needs_sim": 0, "probes_saved": 0}
         self._worst_memo: Dict[tuple, np.ndarray] = {}
         self._reqs_memo: Dict[tuple, object] = {}
+        self._prices = None
         self._verdicts: Dict[int, LooVerdict] = {}
         from ..obs.tracer import TRACER
         with TRACER.span("disruption.mnloo", candidates=len(self.candidates)):
@@ -324,6 +363,7 @@ class MultiNodeLooEngine:
 
     # the single-node engine's replacement-pricing memos, shared verbatim
     _combined_reqs = LeaveOneOutEngine._combined_reqs
+    _price_vectors = LeaveOneOutEngine._price_vectors
     _worst_prices = LeaveOneOutEngine._worst_prices
 
     def _prepare(self) -> None:
@@ -434,7 +474,8 @@ class MultiNodeLooEngine:
         overflow = {g: r for g, r in overflow.items() if r > 0}
         if not overflow:
             if len(groups) == 1:
-                return LooVerdict(WIN)  # exact: delete, zero new nodes
+                # exact: delete, zero new nodes
+                return LooVerdict(WIN, tally="won_delete")
             # multi-group: solo totals are optimistic — contention could
             # still overflow, so a delete is plausible but not proven
             return LooVerdict(NEEDS_SIM)
@@ -502,8 +543,9 @@ class MultiNodeLooEngine:
             worst = self._worst_prices(g, m0, True)
             if not bool((it_set & (worst < price)).any()):
                 return LooVerdict(REJECT, "Can't replace with a cheaper node")
-            return LooVerdict(WIN)  # len > 1: no MIN_SPOT_TO_SPOT floor
+            # len > 1: no MIN_SPOT_TO_SPOT floor
+            return LooVerdict(WIN, tally="won_replace")
         worst = self._worst_prices(g, m0, False)
         if not bool((it_set & (worst < price)).any()):
             return LooVerdict(REJECT, "Can't replace with a cheaper node")
-        return LooVerdict(WIN)
+        return LooVerdict(WIN, tally="won_replace")

@@ -287,11 +287,16 @@ class TensorNodeClaim:
         self.requirements.delete(api_labels.LABEL_HOSTNAME)
 
     def remove_instance_types_by_price_and_min_values(self, reqs, max_price: float):
-        """Consolidation price filter (nodeclaim.go:136-145)."""
-        from ..cloudprovider.types import satisfies_min_values
+        """Consolidation price filter (nodeclaim.go:136-145), the options'
+        worst launch prices read as one vector."""
+        from ..cloudprovider.types import WorstLaunchPrices, satisfies_min_values
+        with TRACER.span("disruption.prices") as sp:
+            prices = WorstLaunchPrices(self.instance_type_options)
+            worst = prices.vector(reqs)
+            sp.set(vectors=prices.built, types=worst.size)
         self.instance_type_options = [
-            it for it in self.instance_type_options
-            if it.offerings.available().worst_launch_price(reqs) < max_price]
+            it for it, w in zip(self.instance_type_options, worst)
+            if w < max_price]
         _, err = satisfies_min_values(self.instance_type_options, reqs)
         if err is not None:
             return None, err

@@ -707,11 +707,11 @@ class LiveEnv:
 
     def node(self, name, it, capacity_type="on-demand", zone="test-zone-a",
              alloc=None, initialized=True, consolidatable=True,
-             drifted=False):
+             drifted=False, labels=None):
         """expectations.make_nodeclaim_and_node: a claim carrying its pool's
         hash (or the Drifted condition) and a linked node; an uninitialized
         node keeps a startup taint. ``alloc``: quantities as strings, or
-        resources already parsed."""
+        resources already parsed; ``labels``: more labels of both."""
         k, L, o = self.k, self.k.labels, self.k.objects
         nc_mod = self.w.nodeclaim
         alloc = alloc or {"cpu": "32", "memory": "128Gi", "pods": "110"}
@@ -721,7 +721,8 @@ class LiveEnv:
                   L.LABEL_INSTANCE_TYPE: it if isinstance(it, str)
                   else it.name,
                   L.CAPACITY_TYPE_LABEL_KEY: capacity_type,
-                  L.LABEL_TOPOLOGY_ZONE: zone, L.LABEL_HOSTNAME: name}
+                  L.LABEL_TOPOLOGY_ZONE: zone, L.LABEL_HOSTNAME: name,
+                  **(labels or {})}
         annotations = {}
         live_pool = self.store.get(k.nodepool.NodePool, "default")
         if live_pool is not None and not drifted:
