@@ -25,6 +25,7 @@ direction), everything else -> whole units rounded the same way.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -218,6 +219,112 @@ def encode_requirements(vocab: Vocab, reqs: Requirements) -> EncodedRequirements
                                exempt=exempt, gt=gt.astype(np.int64), lt=lt.astype(np.int64))
 
 
+#: NodeLabelTable codes of a node with no value under a key, and of a node
+#: whose beta and GA labels disagree (label_requirements intersects them
+#: to an empty In set: DoesNotExist)
+ABSENT = -1
+CONFLICT = -2
+
+
+class NodeLabelTable:
+    """A fleet's node labels column by column: for each normalised label
+    key, each node's value as an index into the key's distinct values, or
+    ABSENT, or CONFLICT. A node label is always ``In [v]``, so a node's
+    encoded row depends only on these codes, and the encode becomes one
+    gather and one scatter per vocab key (encode_node_labels) in place of
+    a Requirements object per node.
+
+    - ``values[key]``: the key's distinct values in the order of their
+      first appearance over the nodes, which is the order in which a
+      node-by-node ``Vocab.add_value`` walk meets them;
+    - ``zones``: each node's raw ``topology.kubernetes.io/zone`` label
+      ("" when unset), which the existing-node zone index reads as it
+      stands;
+    - ``resources``: the nodes' allocatable resource names in the order
+      of their first appearance."""
+
+    __slots__ = ("n", "codes", "values", "zones", "resources")
+
+    def __init__(self, nodes: Sequence):
+        raw = [sn.labels() for sn in nodes]
+        zone_key = api_labels.LABEL_TOPOLOGY_ZONE
+        self.n = len(raw)
+        self.zones: List[str] = [labels.get(zone_key, "") for labels in raw]
+        aliased = api_labels.NORMALIZED_LABELS.keys()
+        rows = [labels if aliased.isdisjoint(labels) else _normalised(labels)
+                for labels in raw]
+        self.codes: Dict[str, np.ndarray] = {}
+        self.values: Dict[str, List[str]] = {}
+        for key in sorted(set().union(*rows)):
+            column = [labels.get(key, _ABSENT) for labels in rows]
+            values = [v for v in dict.fromkeys(column)
+                      if v is not _ABSENT and v is not _CONFLICT]
+            index = {v: i for i, v in enumerate(values)}
+            index[_ABSENT], index[_CONFLICT] = ABSENT, CONFLICT
+            self.codes[key] = np.fromiter(map(index.__getitem__, column),
+                                          dtype=np.int32, count=self.n)
+            self.values[key] = values
+        self.resources: List[str] = list(dict.fromkeys(
+            itertools.chain.from_iterable(sn.allocatable() for sn in nodes)))
+
+
+_ABSENT = object()
+_CONFLICT = object()
+
+
+def _normalised(labels: dict) -> dict:
+    """One node's labels under their normalised keys, a beta key and its
+    GA key that disagree marked _CONFLICT (the intersection of their In
+    sets is empty, and stays empty)."""
+    out: dict = {}
+    for key, v in labels.items():
+        key = api_labels.NORMALIZED_LABELS.get(key, key)
+        if key in out and out[key] != v:
+            v = _CONFLICT
+        out[key] = v
+    return out
+
+
+def encode_node_labels(vocab: Vocab, table: NodeLabelTable,
+                       total: int) -> EncodedRequirements:
+    """[total, ...] requirement rows of a table's nodes, byte-identical to
+    stacking ``encode_requirements`` of each node's in-vocab
+    ``label_requirements``; rows from ``table.n`` on are the
+    empty-Requirements row (pow2 padding). Each row starts undefined (the
+    tail mask, complement); per vocab key, a node with a value is defined
+    with one bit set, or none where the value is outside the vocab, and a
+    CONFLICT node is defined DoesNotExist (empty, exempt)."""
+    K, W, n = vocab.K, vocab.W, table.n
+    mask = np.empty((total, K, W), dtype=np.uint32)
+    mask[:] = _tail_mask(vocab)
+    defined = np.zeros((total, K), dtype=bool)
+    complement = np.ones((total, K), dtype=bool)
+    exempt = np.zeros((total, K), dtype=bool)
+    gt = np.full((total, K), INT_MIN, dtype=np.int64)
+    lt = np.full((total, K), INT_MAX, dtype=np.int64)
+    for k, key in enumerate(vocab.keys):
+        codes = table.codes.get(key)
+        if codes is None:
+            continue
+        has = codes != ABSENT
+        defined[:n, k] = has
+        complement[:n, k] = ~has
+        exempt[:n, k] = codes == CONFLICT
+        mask[:n, k][has] = 0
+        vi = vocab.value_idx[k]
+        # the two trailing -1 entries answer the codes CONFLICT and ABSENT
+        lut = np.array([vi.get(v, -1) for v in table.values[key]] + [-1, -1],
+                       dtype=np.int64)
+        bit = lut[codes]
+        rows = np.flatnonzero(bit >= 0)
+        bit = bit[rows]
+        mask[rows, k, bit >> 5] = np.left_shift(
+            np.uint32(1), (bit & 31).astype(np.uint32))
+    return EncodedRequirements(mask=mask, defined=defined,
+                               complement=complement, exempt=exempt,
+                               gt=gt, lt=lt)
+
+
 def _tail_mask(vocab: Vocab) -> np.ndarray:
     """[K, W] uint32 mask keeping bits up to each key's OTHER slot. Cached
     only on a frozen vocab: an unfrozen vocab can grow a key's value count
@@ -256,6 +363,13 @@ def stack_encoded(items: Sequence[EncodedRequirements]) -> EncodedRequirements:
         exempt=np.stack([e.exempt for e in items]),
         gt=np.stack([e.gt for e in items]),
         lt=np.stack([e.lt for e in items]))
+
+
+def copy_encoded(e: EncodedRequirements) -> EncodedRequirements:
+    return EncodedRequirements(
+        mask=e.mask.copy(), defined=e.defined.copy(),
+        complement=e.complement.copy(), exempt=e.exempt.copy(),
+        gt=e.gt.copy(), lt=e.lt.copy())
 
 
 def pad_stacked(e: EncodedRequirements, total: int,
@@ -327,4 +441,20 @@ def encode_resource_vector(vocab: Vocab, rl: dict, *, capacity: bool) -> np.ndar
         if idx is None:
             continue
         out[idx] = scale_capacity(name, milli) if capacity else scale_request(name, milli)
+    return out
+
+
+def encode_capacity_rows(vocab: Vocab, rls: Sequence[dict],
+                         total: int) -> np.ndarray:
+    """[total, R] rows of ``encode_resource_vector(..., capacity=True)``
+    over ``rls``, built a resource column at a time; rows past len(rls)
+    are zero (pow2 padding). The quantities are whole milli-units, so
+    numpy's floor division scales them as ``scale_capacity`` does."""
+    out = np.zeros((total, vocab.R), dtype=np.int64)
+    n = len(rls)
+    for r, name in enumerate(vocab.resources):
+        col = np.array([rl.get(name, 0) for rl in rls], dtype=np.int64)
+        if name in _BYTE_RESOURCES:
+            col //= MIB * 1000
+        out[:n, r] = col
     return out

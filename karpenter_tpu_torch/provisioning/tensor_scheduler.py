@@ -427,6 +427,10 @@ class TensorScheduler:
         # is tiny). Provisioning constructs a scheduler per solve, so the
         # memo is exactly one-pass-scoped there too.
         self._exist_memo: dict = {}
+        # the state nodes' labels column by column (enc.NodeLabelTable),
+        # built on first use by the vocab check, the catalog encode or the
+        # node encode, and shared by all three for this scheduler's life
+        self._node_labels: Optional[enc.NodeLabelTable] = None
         # provisioning.problem_state.ProblemState: the persistent cross-pass
         # delta cache (node rows, group rows, topology-count memo, warm-pack
         # seed). None (the default) keeps the self-contained cold path —
@@ -887,9 +891,10 @@ class TensorScheduler:
                     nsp.set(shard_dirty=",".join(
                         f"{s}:{d}" for s, d in sorted(sd.items())))
         elif self.state_nodes:
-            with TRACER.span("encode.nodes", nodes=len(self.state_nodes)):
+            with TRACER.span("encode.nodes",
+                             nodes=len(self.state_nodes)) as nsp:
                 exist_enc, exist_avail, exist_zone, tol_exist = \
-                    self._cold_node_rows(vocab, zone_key, groups, G)
+                    self._cold_node_rows(vocab, zone_key, groups, nsp)
 
         group_count = np.array([g.count for g in groups], dtype=np.int64)
         if ps is not None:
@@ -933,56 +938,41 @@ class TensorScheduler:
                                 else None))
         return problem, templates, catalog
 
-    def _cold_node_rows(self, vocab, zone_key: int, groups, G: int):
+    def _cold_node_rows(self, vocab, zone_key: int, groups, nsp):
         """State-node encode for the self-contained (no ProblemState) path,
         memoized per vocab identity; returns the pow2-padded
-        (exist_enc, exist_avail, exist_zone, tol_exist)."""
+        (exist_enc, exist_avail, exist_zone, tol_exist). ``nsp`` (the
+        ``encode.nodes`` span) gets the rows this call built: ``columnar``
+        from the label table alone, ``per_node`` through a per-node step
+        (the daemonset overhead check); both 0 on a memo hit, which hands
+        out copies of the arrays the first call returned."""
         memo = self._exist_memo.get(id(vocab))
         if memo is None:
-            encs, avails, zones, taint_lists = [], [], [], []
-            for sn in self.state_nodes:
-                reqs = label_requirements(sn.labels())
-                known = Requirements(
-                    r for r in reqs.values()
-                    if api_labels.NORMALIZED_LABELS.get(r.key, r.key)
-                    in vocab.key_idx)
-                encs.append(enc.encode_requirements(vocab, known))
-                node_daemons = _node_remaining_daemons(
-                    sn, self.daemonset_pods)
-                avail = res.subtract(sn.available(), node_daemons)
-                avails.append(enc.encode_resource_vector(vocab, avail,
-                                                         capacity=True))
-                z = sn.labels().get(api_labels.LABEL_TOPOLOGY_ZONE, "")
-                zones.append(vocab.value_idx[zone_key].get(z, -1))
-                taint_lists.append(sn.taints())
+            N = len(self.state_nodes)
+            # bucket the node-batch axis: padded rows have undefined masks
+            # and zero capacity, so they are never packable (exist_cap < 1)
+            (exist_enc, exist_avail, exist_zone, taint_lists,
+             per_node) = encode_node_rows(
+                vocab, zone_key, self.state_nodes, self.daemonset_pods,
+                _pow2_bucket(N, 16), self._label_table())
+            nsp.set(columnar=N - per_node, per_node=per_node)
             # the memo holds the vocab itself so its id() can never be
             # recycled by a new object while the entry is alive
-            memo = (vocab, encs, np.stack(avails),
-                    np.array(zones, dtype=np.int32), taint_lists)
-            self._exist_memo[id(vocab)] = memo
-        _, encs, avail_rows, zone_rows, taint_lists = memo
+            self._exist_memo[id(vocab)] = (vocab, exist_enc, exist_avail,
+                                           exist_zone, taint_lists)
+        else:
+            nsp.set(columnar=0, per_node=0)
+            _, exist_enc, exist_avail, exist_zone, taint_lists = memo
+            exist_enc = enc.copy_encoded(exist_enc)
+            exist_avail, exist_zone = exist_avail.copy(), exist_zone.copy()
         tol_exist = _tol_exist_matrix(groups, taint_lists,
-                                      len(self.state_nodes))
-        exist_enc = enc.stack_encoded(encs)
-        exist_avail = avail_rows.copy()
-        exist_zone = zone_rows.copy()
-        # bucket the node-batch axis: padded rows have undefined masks and
-        # zero capacity, so they are never packable (exist_cap < 1)
-        N = len(self.state_nodes)
-        Np = _pow2_bucket(N, 16)
-        if Np > N:
-            pad = Np - N
-            zero = enc.encode_requirements(vocab, Requirements())
-            exist_enc = enc.stack_encoded(
-                encs + [zero] * pad)
-            exist_avail = np.concatenate(
-                [exist_avail, np.zeros((pad,) + exist_avail.shape[1:],
-                                       exist_avail.dtype)])
-            exist_zone = np.concatenate(
-                [exist_zone, np.full(pad, -1, np.int32)])
-            tol_exist = np.concatenate(
-                [tol_exist, np.zeros((G, pad), bool)], axis=1)
+                                      exist_zone.shape[0])
         return exist_enc, exist_avail, exist_zone, tol_exist
+
+    def _label_table(self) -> enc.NodeLabelTable:
+        if self._node_labels is None:
+            self._node_labels = enc.NodeLabelTable(self.state_nodes)
+        return self._node_labels
 
     def _drought_arrays(self, ce: _CatalogEncoding):
         """Registry-masked (off_available, off_price, it_price,
@@ -1086,20 +1076,17 @@ class TensorScheduler:
                 return False
             if any(r not in vocab.resource_idx for r in g.requests):
                 return False
-        for sn in self.state_nodes:
-            reqs = label_requirements(sn.labels())
-            for key in reqs:
-                norm = api_labels.NORMALIZED_LABELS.get(key, key)
-                k = vocab.key_idx.get(norm)
-                if k is None:
-                    continue  # node-only keys are never admitted (see below)
-                vi = vocab.value_idx[k]
-                for v in reqs.get(key).values:
-                    if v not in vi:
-                        return False
-            if any(r not in vocab.resource_idx for r in sn.allocatable()):
+        if not self.state_nodes:
+            return True
+        table = self._label_table()
+        for key, values in table.values.items():
+            k = vocab.key_idx.get(key)
+            if k is None:
+                continue  # node-only keys are never admitted (see below)
+            vi = vocab.value_idx[k]
+            if any(v not in vi for v in values):
                 return False
-        return True
+        return all(r in vocab.resource_idx for r in table.resources)
 
     def _encode_catalog(self, catalog, templates, groups) -> _CatalogEncoding:
         """Fresh vocabulary + catalog-side tensors (the cacheable part of
@@ -1130,14 +1117,16 @@ class TensorScheduler:
         # a.defined & b.defined, and undefined-key violations only fire for
         # pod-side-defined keys (requirements.go:175-187) — so admitting it
         # would just blow the mask domain up to O(nodes) for nothing.
-        for sn in self.state_nodes:
-            reqs = label_requirements(sn.labels())
-            for key in reqs:
-                norm = api_labels.NORMALIZED_LABELS.get(key, key)
-                if norm in vocab.key_idx:
-                    for v in reqs.get(key).values:
-                        vocab.add_value(norm, v)
-            vocab.observe_resources(sn.allocatable())
+        # Each key's values go in in their first appearance over the nodes:
+        # the order sets the bit positions, and the JAX package's
+        # node-by-node walk adds them in that order.
+        if self.state_nodes:
+            table = self._label_table()
+            for key, values in table.values.items():
+                if key in vocab.key_idx:
+                    for v in values:
+                        vocab.add_value(key, v)
+            vocab.observe_resources(table.resources)
         # power-of-two domain bucket: consolidation's prefix probes vary the
         # value counts per simulation; bucketing keeps mask shapes (and so
         # the jit cache) stable across probes
@@ -1624,9 +1613,39 @@ def _tol_exist_matrix(groups, taint_lists, total_cols: int) -> np.ndarray:
     return out
 
 
+def encode_node_rows(vocab, zone_key: int, state_nodes, daemonset_pods,
+                     total: int, table=None) -> tuple:
+    """(exist_enc, exist_avail, exist_zone, taint_lists, per_node): the
+    state nodes' rows padded to ``total`` — THE one construction of the
+    cold path and the plane's dirty rows (state/plane.py), so the two stay
+    byte-identical. The requirement rows come from the nodes' label table
+    (``table``, built here when not given); only the daemonset overhead
+    takes a per-node step, and only with daemonset pods to place:
+    ``per_node`` counts those nodes. taint_lists covers the real nodes."""
+    if table is None:
+        table = enc.NodeLabelTable(state_nodes)
+    exist_enc = enc.encode_node_labels(vocab, table, total)
+    avails = []
+    for sn in state_nodes:
+        avail = sn.available()
+        overhead = _node_remaining_daemons(sn, daemonset_pods)
+        avails.append(res.subtract(avail, overhead) if overhead else avail)
+    exist_avail = enc.encode_capacity_rows(vocab, avails, total)
+    vi = vocab.value_idx[zone_key]
+    exist_zone = np.full(total, -1, dtype=np.int32)
+    exist_zone[:table.n] = [vi.get(z, -1) for z in table.zones]
+    taint_lists = [sn.taints() for sn in state_nodes]
+    per_node = len(state_nodes) if daemonset_pods else 0
+    return exist_enc, exist_avail, exist_zone, taint_lists, per_node
+
+
 def _node_remaining_daemons(sn, daemonset_pods) -> dict:
     """Remaining daemonset overhead a node must still absorb
-    (existingnode.go:44-54)."""
+    (existingnode.go:44-54). With no daemonset pod to place it is the
+    clamp of minus what the node's daemonset pods request, and the node's
+    requirements are not built."""
+    if not daemonset_pods:
+        return {k: max(-v, 0) for k, v in sn.daemonset_requests().items()}
     from ..scheduling.requirements import pod_requirements as preqs
     daemons = []
     node_taints = sn.taints()

@@ -127,10 +127,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..api import labels as api_labels
 from ..ops import encode as enc
-from ..scheduling.requirements import Requirements, label_requirements
-from ..utils import resources as res
+from ..scheduling.requirements import Requirements
 from . import audit as _audit
 
 # bound on signature-keyed caches: distinct deployment shapes seen across
@@ -258,23 +256,24 @@ class EncodePlane:
                 cache.ds_token = ds_token
         return cache
 
-    def _encode_node_row(self, vocab, zone_key: int, sn, daemonset_pods,
-                         rev, remaining_daemons) -> tuple:
-        """Cold-encode ONE node row (the auditor's shadow audits reuse
-        exactly this path, so a shadow compare is a true cold replay)."""
-        reqs = label_requirements(sn.labels())
-        known = Requirements(
-            r for r in reqs.values()
-            if api_labels.NORMALIZED_LABELS.get(r.key, r.key)
-            in vocab.key_idx)
-        avail = res.subtract(
-            sn.available(), remaining_daemons(sn, daemonset_pods))
-        z = sn.labels().get(api_labels.LABEL_TOPOLOGY_ZONE, "")
-        return (rev,
-                enc.encode_requirements(vocab, known),
-                enc.encode_resource_vector(vocab, avail, capacity=True),
-                vocab.value_idx[zone_key].get(z, -1),
-                sn.taints())
+    @staticmethod
+    def _encode_node_rows(vocab, zone_key: int, nodes, daemonset_pods,
+                          revs) -> list:
+        """Cold-encode node rows, one (rev, enc_row, avail_row, zone,
+        taints) per node, through build_problem's own cold construction
+        (tensor_scheduler.encode_node_rows); the auditor's shadow audits
+        reuse exactly this path, so a shadow compare is a true cold
+        replay."""
+        from ..provisioning.tensor_scheduler import encode_node_rows
+        e, avail, zones, taint_lists, _ = encode_node_rows(
+            vocab, zone_key, nodes, daemonset_pods, len(nodes))
+        return [(rev,
+                 enc.EncodedRequirements(
+                     mask=e.mask[j], defined=e.defined[j],
+                     complement=e.complement[j], exempt=e.exempt[j],
+                     gt=e.gt[j], lt=e.lt[j]),
+                 avail[j], int(zones[j]), taint_lists[j])
+                for j, rev in enumerate(revs)]
 
     def _quarantine_node_layer(self, cache: _NodeCache, auditor) -> None:
         """Per-layer quarantine: one corrupted row means neither
@@ -297,15 +296,14 @@ class EncodePlane:
         serve; a mismatch quarantines the layer and the outer loop
         restarts ONCE over the now-cold caches — the second attempt
         re-encodes everything, so it cannot quarantine again."""
-        from ..provisioning.tensor_scheduler import (_node_remaining_daemons,
-                                                     _pow2_bucket)
+        from ..provisioning.tensor_scheduler import _pow2_bucket
         auditor = self.auditor
         cache = self._node_cache(vocab, ds_token)
         for _attempt in (0, 1):
             cur, prev = cache.cur, cache.prev
-            reencoded = 0
             dirty_idx: List[int] = []
-            fresh: Dict[tuple, tuple] = {}
+            dirty_revs: List[tuple] = []
+            picked: List[Optional[tuple]] = []
             keys = []
             quarantined = False
             for i, sn in enumerate(state_nodes):
@@ -323,13 +321,10 @@ class EncodePlane:
                     row = prev.get(key)
                 if row is None or rev[0] is None or rev[1] is None \
                         or row[0] != rev:
-                    row = self._encode_node_row(vocab, zone_key, sn,
-                                                daemonset_pods, rev,
-                                                _node_remaining_daemons)
-                    if auditor is not None:
-                        row = row + (_audit.row_digest(row),)
-                    reencoded += 1
+                    # encoded below, with the other dirty rows at once
+                    row = None
                     dirty_idx.append(i)
+                    dirty_revs.append(rev)
                 elif auditor is not None and len(row) > 5 \
                         and _audit.row_digest(row) != row[5]:
                     auditor.incident("node_rows",
@@ -343,7 +338,17 @@ class EncodePlane:
                     # digest it on first audited serve (verify_group's
                     # adopt semantics) — from here on it is verifiable
                     row = row + (_audit.row_digest(row),)
-                fresh[key] = row
+                picked.append(row)
+            reencoded = len(dirty_idx)
+            if not quarantined and dirty_idx:
+                rows = self._encode_node_rows(
+                    vocab, zone_key, [state_nodes[i] for i in dirty_idx],
+                    daemonset_pods, dirty_revs)
+                for i, row in zip(dirty_idx, rows):
+                    if auditor is not None:
+                        row = row + (_audit.row_digest(row),)
+                    picked[i] = row
+            fresh: Dict[tuple, tuple] = dict(zip(keys, picked))
             if not quarantined and auditor is not None \
                     and reencoded < len(state_nodes):
                 # sampled shadow audit: re-encode K clean rows cold and
@@ -356,9 +361,9 @@ class EncodePlane:
                     i = clean[j]
                     sn = state_nodes[i]
                     row = fresh[keys[i]]
-                    cold = self._encode_node_row(vocab, zone_key, sn,
-                                                 daemonset_pods, row[0],
-                                                 _node_remaining_daemons)
+                    (cold,) = self._encode_node_rows(vocab, zone_key, [sn],
+                                                     daemonset_pods,
+                                                     [row[0]])
                     if _audit.row_digest(cold) != _audit.row_digest(row):
                         auditor.incident(
                             "node_rows",

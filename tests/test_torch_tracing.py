@@ -2,8 +2,8 @@
 the CPU: the solve's ``partition`` span, ``get_candidates``'s
 ``disruption.candidates``, the collector's pauses on the trace's root, the
 pack's inputs and its existing-node fill time and scan on the ``pack``
-span, and the spans as ``user_annotation`` ranges of a ``torch.profiler``
-session."""
+span, the existing-node encode's row counts on ``encode.nodes``, and the
+spans as ``user_annotation`` ranges of a ``torch.profiler`` session."""
 
 import gc
 import json
@@ -184,6 +184,39 @@ def test_pack_is_not_timed_with_the_tracer_off():
     ((timed, existing_ms, scanned, out),) = seen
     assert not timed and existing_ms == 0.0 and scanned == 0
     assert out.existing    # the fill ran, untimed
+
+
+# -- the existing-node encode ------------------------------------------------
+
+@pytest.mark.parametrize("daemons", [0, 1])
+def test_node_encode_span_counts_its_columnar_and_per_node_rows(daemons):
+    pools, its, nodes, pods = mini_workload(PORT)
+    ds = [pod(PORT, "ds", "100m")] if daemons else []
+    ts = support.scheduler(PORT, pools, its, state_nodes=nodes,
+                           daemonset_pods=ds)
+    ts.solve(pods)
+    assert ts.fallback_reason == ""
+    sp = _span(TRACER.last(), "encode.nodes")
+    n = len(nodes)
+    assert n > 0 and sp.attrs["nodes"] == n
+    # every row from the label table; with a daemonset pod to place, each
+    # node's overhead check is a per-node step
+    assert (sp.attrs["columnar"], sp.attrs["per_node"]) == \
+        ((0, n) if daemons else (n, 0))
+
+
+def test_a_memo_hit_of_the_node_encode_builds_no_row():
+    pools, its, nodes, pods = mini_workload(PORT)
+    ts = support.scheduler(PORT, pools, its, state_nodes=nodes)
+    groups, _, _ = support.pkg(PORT).grouping.partition_pods(pods)
+    first, _, _ = ts.build_problem(groups)
+    second, _, _ = ts.build_problem(groups)
+    sp = _span(TRACER.last(), "encode.nodes")
+    assert (sp.attrs["columnar"], sp.attrs["per_node"]) == (0, 0)
+    # a hit hands out copies of the first call's arrays
+    assert second.exist_enc.mask is not first.exist_enc.mask
+    assert (second.exist_enc.mask == first.exist_enc.mask).all()
+    assert (second.exist_avail == first.exist_avail).all()
 
 
 # -- the profiler's ranges ---------------------------------------------------
