@@ -15,8 +15,7 @@ pending pods of the benchmark mix against a 2,000-type catalog:
   an 8-slot mesh over the one card (a 4x2 grid: four exist-row shards), in
   windows of three kinds: a wobble of the batch, node churn inside one
   shard's rows, and a rollout (a new deployment plus node churn), each
-  held to a cold solve of the same inputs;
-- cold with the pods/groups-sharded pack (``pack_shards=4``).
+  held to a cold solve of the same inputs.
 
 Then it drives the loops that call the solve, on a live cluster (a kube
 store whose informers feed the cluster state, the kwok provider, a fake
@@ -178,7 +177,6 @@ CHURN_ROWS = 64
 CHURN_SHARD = 1
 # the warm mesh: MESH_SLOTS slots on the one card, a 4x2 grid
 MESH_SLOTS = 8
-PACK_SHARDS = 4
 
 # NVIDIA H100 SXM: the HBM rate of the data sheet, and the peak INT32 rate
 # outside the tensor cores of NVIDIA's H100 architecture whitepaper (33.5
@@ -561,7 +559,7 @@ def _errors_by_kind(pods, results) -> dict:
 
 def _solve(ts_mod, pool, catalog, pods, nodes, device, **kw):
     """One solve as a user makes it, forced onto the tensor path; ``kw``
-    passes mesh=, problem_state= or pack_shards= through. Returns
+    passes mesh= or problem_state= through. Returns
     (scheduler, results, seconds)."""
     ts = ts_mod.TensorScheduler([pool], {"default": catalog},
                                 state_nodes=nodes, force_tensor=True,
@@ -3446,32 +3444,7 @@ def main() -> None:
     _emit({"phase": "warm_churn_mesh_summary", "mesh": repr(mesh8),
            "by_window": _summary(recs)})
 
-    # 10. the cold solve with the pods/groups-sharded pack: the decisions
-    # of the same solve through the plain versions on the CPU, and the pod
-    # errors of the sequential pack (mesh.sharded_pack's contract)
-    _reset_counts(kernels)
-    _solve(ts_mod, pool, catalog, pods, (), DEVICE,
-           pack_shards=PACK_SHARDS)  # warm-up
-    _, sharded, elapsed = _solve(ts_mod, pool, catalog, pods, (), DEVICE,
-                                 pack_shards=PACK_SHARDS)
-    trace = TRACER.last()
-    record("solve_sharded_pack")
-    assert "pack.shards" in phase_millis(trace), "the pack was not sharded"
-    _, sharded_cpu, cpu_s = _solve(ts_mod, pool, catalog, pods, (), "cpu",
-                                   pack_shards=PACK_SHARDS)
-    same = decision_digest(sharded, pods, "", (len(pods), 0)) == \
-        decision_digest(sharded_cpu, pods, "", (len(pods), 0))
-    assert same, "sharded pack: cuda and cpu decisions differ"
-    assert sharded.pod_errors == runs["cold"].pod_errors, \
-        "sharded pack: pod errors differ from the sequential pack's"
-    _emit({"phase": "solve_sharded_pack", "shards": PACK_SHARDS,
-           "s": elapsed, "cpu_solve_s": cpu_s, "digest_equals_cpu": same,
-           "errors": len(sharded.pod_errors),
-           "nodes_launched": len(sharded.new_nodeclaims),
-           "sequential_nodes_launched": len(runs["cold"].new_nodeclaims),
-           "spans_ms": _top_spans(trace)})
-
-    # 11. the Provisioner loop: the north-star batch through
+    # 10. the Provisioner loop: the north-star batch through
     # Provisioner.reconcile, cold and then warm after a rollout, each pass's
     # decisions equal to the same pass through the plain versions on the CPU
     _reset_counts(kernels)
@@ -3490,7 +3463,7 @@ def main() -> None:
     _emit({"phase": "provisioner_pass_launches",
            "launches": paths["provisioner_pass"]})
 
-    # 12. multi-node consolidation over BASELINE config 4's fleet: 5,000
+    # 11. multi-node consolidation over BASELINE config 4's fleet: 5,000
     # underutilized nodes x the kwok 144-type catalog, the budget lifted;
     # the command equal to the plain versions' on the CPU
     env = underutilized_fleet(DEVICE)
@@ -3535,7 +3508,7 @@ def main() -> None:
            "profile": {**prof, "launches": profiled}})
     del env, cpu_env
 
-    # 13. single-node consolidation at 5,000 candidates, every candidate but
+    # 12. single-node consolidation at 5,000 candidates, every candidate but
     # the last unconsolidatable: the last one wins, classified with no
     # per-candidate fallback simulation, equal to the CPU's command
     env = stuck_fleet(DEVICE)
@@ -3561,7 +3534,7 @@ def main() -> None:
            "spans_ms": _top_spans(trace, 12)})
     del cpu_env
 
-    # 14. the DisruptionController over the same shape of fleet (a fresh
+    # 13. the DisruptionController over the same shape of fleet (a fresh
     # one, N_NODES nodes, which cuts bench.py's default of 50,000): a cold
     # pass through all four methods, then warm passes served by the
     # streaming state, each equal to a fresh controller's cold rebuild and
@@ -3613,7 +3586,7 @@ def main() -> None:
     _emit({"phase": "disruption_controller_cpu", "cold_s": cpu_s})
     del env, cpu_env
 
-    # 14b. the operator: its whole roster over the north-star burst, then a
+    # 13b. the operator: its whole roster over the north-star burst, then a
     # scale-down that consolidates; every step's store equal to the same
     # step on the CPU
     def record_operator() -> dict:
@@ -3622,7 +3595,7 @@ def main() -> None:
     for line in operator_phase(DEVICE, record_operator):
         _emit(line)
 
-    # 14c. the solver sidecar: the north-star solves through a
+    # 13c. the solver sidecar: the north-star solves through a
     # SolverSession and gRPC on 127.0.0.1 to the port's server on the card,
     # each equal to the in-process solve of the same inputs
     _reset_counts(kernels)
@@ -3631,24 +3604,24 @@ def main() -> None:
     record("sidecar")
     for line in lines:
         _emit(line)
-    # 14d. two replicas and a handoff store: a drain migrates the session
+    # 13d. two replicas and a handoff store: a drain migrates the session
     _reset_counts(kernels)
     fleet = sidecar_fleet_phase(DEVICE, pool, catalog, pods, span, runs,
                                 window_digests)
     record("sidecar_fleet")
     _emit(fleet)
-    # 14e. the sidecar as its own process, as a deployment starts it
+    # 13e. the sidecar as its own process, as a deployment starts it
     _emit(sidecar_process_phase(DEVICE, pool, catalog, pods,
                                 _local_digest(runs["cold"], pods)))
 
-    # 14f. the operator over the sidecar backend, against the CPU
+    # 13f. the operator over the sidecar backend, against the CPU
     def record_operator_sidecar() -> dict:
         record("operator_sidecar")
         return paths["operator_sidecar"]
     for line in operator_sidecar_phase(DEVICE, record_operator_sidecar):
         _emit(line)
 
-    # 14g. the fleet simulator on the card: the four pinned clips (the JAX
+    # 13g. the fleet simulator on the card: the four pinned clips (the JAX
     # package's digests), then mixed-day's whole day and its first quarter
     def recorder(path: str):
         def record_path() -> dict:
@@ -3664,14 +3637,14 @@ def main() -> None:
     for line in sim_lines:
         _emit(line)
 
-    # 14h. the north-star cold solve on a mesh across two processes, each
+    # 13h. the north-star cold solve on a mesh across two processes, each
     # process's decisions equal to the single-process cold solve's; their
     # launches are counted in the processes and summed here
     line, paths["mesh_multiprocess"], _ = mesh_multiprocess_phase(
         _local_digest(runs["cold"], pods), best_s["cold"])
     _emit(line)
 
-    # 14i. the operator over the apiserver wire: store_backend="kube"
+    # 13i. the operator over the apiserver wire: store_backend="kube"
     # against the port's EnvtestServer on 127.0.0.1 (the CRDs posted, a
     # kubeconfig), each step driven to quiescence; every step's apiserver
     # state equal to the same drive on the CPU
@@ -3682,11 +3655,11 @@ def main() -> None:
                                phase="operator_kube", kube=True,
                                n_pods=KUBE_PODS, n_deploys=KUBE_DEPLOYS):
         _emit(line)
-    # 14j. the operator's CLI against such a server, as a deployment runs
+    # 13j. the operator's CLI against such a server, as a deployment runs
     # it: a child process on the card with a KubeLease over the wire
     _emit(operator_kube_process_phase(DEVICE))
 
-    # 15. every path launched the kernels it runs; the table counts them
+    # 14. every path launched the kernels it runs; the table counts them
     # all (B5 has no caller on any path: its launches stay 0)
     expect = {"operator": FEASIBILITY, "sidecar": FEASIBILITY,
               "sidecar_fleet": FEASIBILITY,
@@ -3698,7 +3671,6 @@ def main() -> None:
               "solve_mesh_4x2": FEASIBILITY,
               "warm_churn": FEASIBILITY,
               "warm_churn_mesh": FEASIBILITY + ("row_splice",),
-              "solve_sharded_pack": FEASIBILITY[:2],
               "provisioner_pass": FEASIBILITY,
               "consolidation_multi": FEASIBILITY,
               "consolidation_single": FEASIBILITY,
@@ -3725,20 +3697,20 @@ def main() -> None:
             f"{name} was never launched on the main path"
         rows[name]["launches"] = n
 
-    # 16. device-time attribution (obs.device.DEVICE_TIME) of the cold
+    # 15. device-time attribution (obs.device.DEVICE_TIME) of the cold
     # solve and the solve with nodes, traced and not
     _emit({"phase": "device_attribution", **device_attribution(
         ts_mod, pool, catalog, pods, nodes, (problem, problem_x))})
 
-    # 17. one north-star Provisioner pass under the profiler
+    # 16. one north-star Provisioner pass under the profiler
     _emit({"phase": "profile_provisioner_pass",
            **profiled_pass(DEVICE, gpu_passes[0])})
 
-    # 18. the flight recorder on the provisioner and disruption passes, and
+    # 17. the flight recorder on the provisioner and disruption passes, and
     # replays of its records on the card
     _emit({"phase": "flight_recorder", **flight_recorder_phase(DEVICE)})
 
-    # 19. the script's length by phase, the kernel table and the verdict
+    # 18. the script's length by phase, the kernel table and the verdict
     _emit({"phase": "elapsed", "s": time.perf_counter() - _T0,
            "phase_at_s": {k: v for k, v in PHASE_AT.items() if k}})
     _emit({"kernels": list(rows.values())})

@@ -148,6 +148,16 @@ class WorstLaunchPrices:
         return out
 
 
+def below_worst_launch_price(options: Iterable[InstanceType],
+                             reqs: Requirements, max_price: float):
+    """The consolidation price filter (nodeclaim.go:136-145): the options,
+    in order, whose worst launch price under ``reqs`` is below
+    ``max_price``, and the WorstLaunchPrices that priced them."""
+    prices = WorstLaunchPrices(options)
+    worst = prices.vector(reqs)
+    return [it for it, w in zip(prices.catalog, worst) if w < max_price], prices
+
+
 @dataclass
 class InstanceTypeOverhead:
     kube_reserved: dict = field(default_factory=dict)

@@ -646,21 +646,6 @@ class CohortSet:
         self.C += 1
         return cj
 
-    def append_row_from(self, other: "CohortSet", ci: int) -> int:
-        """Copy row ``ci`` of ``other`` (built over the same problem,
-        tensors and group count) into this set: the sharded pack's merge
-        step. Row aggregates copy verbatim — they are order-independent
-        AND-folds, so a merged set scans exactly like one that boarded the
-        same groups sequentially."""
-        cj = self.C
-        if cj == self._cap:
-            self._grow()
-        for name in self._ROW_FIELDS:
-            getattr(self, name)[cj] = getattr(other, name)[ci]
-        self.pods_by_group.append(dict(other.pods_by_group[ci]))
-        self.C += 1
-        return cj
-
     def enc_row(self, ci: int) -> EncodedRequirements:
         """Row VIEWS — callers combine them into fresh arrays (np_combine
         never mutates) and write back via set_enc."""
@@ -748,17 +733,6 @@ class WarmStart:
     result_seed: Optional[PackSeed] = None
     restored_pos: int = 0
     matched: int = 0
-    # sharded hierarchical pack composition (parallel/mesh.sharded_pack):
-    # one PackSeed per round-robin FFD block. Each shard's Packer runs the
-    # SAME warm machinery over its block order (the seed's ffd_tokens are
-    # that block's per-group tokens), so a shard whose groups kept their
-    # tokens AND their block replays its whole pack; a group that moved
-    # shards breaks both affected blocks' prefixes from its position on.
-    shard_seeds: Optional[list] = None
-    result_shard_seeds: Optional[list] = None
-    # cross-shard reconcile fold memo (mesh._reconcile), carried across
-    # passes by the ProblemState; replaced in place when the fold re-runs
-    reconcile_memo: Optional[dict] = None
 
 
 @dataclass
@@ -773,40 +747,6 @@ class PackResult:
     # are not oracle-final (the production scheduler re-solves on the host
     # path instead of trusting them; see TensorScheduler._solve)
     limit_constrained: bool = False
-
-
-# -- donor-row headroom policy (sharded hierarchical pack) --------------------
-
-# the old fixed bar, kept as the ceiling for dense many-node groups
-DONOR_HEADROOM_DENSE = 0.25
-DONOR_HEADROOM_MEDIUM = 0.15
-DONOR_HEADROOM_SMALL = 0.05
-
-
-def donor_headroom(group_count: int, shards: int) -> float:
-    """Group-size-aware donor bar for the sharded pack's cross-shard
-    reconcile (retires the fixed 0.25, ROADMAP item 3): a single-node row
-    donates its pods to the merge mini-pack when its best surviving
-    instance type still has this much relative headroom over the
-    accumulated requests.
-
-    A group of ``group_count`` pods round-robined over ``shards`` blocks
-    leaves ~count/shards pods per shard — SMALL groups fragment into
-    per-shard tails that are each a large fraction of the whole group, so
-    coalescing them wins whole nodes and they donate at a low bar; HUGE
-    groups produce dense rows whose tail is one node in hundreds, so only
-    a clearly underfilled row is worth the re-pack. Deterministic pure
-    function of (group size, shard count): the sharded pack stays
-    seed-free and the policy is pinned by a directed vector
-    (tests/test_parallel_mesh.py)."""
-    if shards <= 1 or group_count <= 0:
-        return DONOR_HEADROOM_DENSE
-    frag = group_count / shards
-    if frag <= 16:
-        return DONOR_HEADROOM_SMALL
-    if frag <= 128:
-        return DONOR_HEADROOM_MEDIUM
-    return DONOR_HEADROOM_DENSE
 
 
 def waterfill(counts: np.ndarray, viable: np.ndarray, admitted: np.ndarray,
@@ -1491,26 +1431,18 @@ class Packer:
 
     # -- main ---------------------------------------------------------------
 
-    def ffd_order(self) -> List[int]:
-        """The first-fit-decreasing group order the sequential pack walks —
-        exposed so the sharded pack (parallel/mesh.sharded_pack) can carve
-        the SAME order into per-shard blocks."""
+    def _ffd_order(self) -> List[int]:
+        """The first-fit-decreasing group order the pack walks."""
         cpu_idx = self.p.vocab.resource_idx.get("cpu", 0)
         mem_idx = self.p.vocab.resource_idx.get("memory", 0)
         return sorted(range(self.G), key=lambda g: (
             -self.p.group_req[g][cpu_idx], -self.p.group_req[g][mem_idx]))
 
-    def pack(self, order: Optional[List[int]] = None) -> PackResult:
-        """Pack every group of ``order`` (default: the full FFD order) into
-        this packer's cohort set. An explicit order is the sharded-pack
-        entry: it packs only that block of groups. The warm-start machinery
-        is order-generic — checkpoints record state after a prefix of
-        WHATEVER order this pack walks — so a per-shard WarmStart (its
-        global token carries the shard identity, its seed that block's
-        ffd_tokens) composes with an explicit block; callers that want a
-        cold block pack simply construct the Packer without ``warm``."""
-        if order is None:
-            order = self.ffd_order()
+    def pack(self) -> PackResult:
+        """Pack every group, in FFD order, into this packer's cohort set;
+        with a usable warm start, replay the longest checkpointed prefix
+        whose tokens match and pack on from there."""
+        order = self._ffd_order()
         warm = self._warm if self._warm_usable() else None
         start = 0
         cks: List[PackCheckpoint] = []

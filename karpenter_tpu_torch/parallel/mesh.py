@@ -1,5 +1,4 @@
-"""Mesh-sharded execution of the feasibility precompute and the
-pods/groups-sharded pack, on torch devices.
+"""Mesh-sharded execution of the feasibility precompute on torch devices.
 
 The solve's device work (ops/binpack.py precompute_kernel: K1
 combine_compat, K2 catalog_feasibility, K3 exist_feasibility) is an outer
@@ -33,14 +32,6 @@ kernel (ops/kernels.py). A mesh may list one device several times: its slots
 then share that device's resident copies (the CPU tests build an 8-slot mesh
 over the CPU this way, and one card can host an 8-slot mesh the same way).
 
-Past the precompute, ``sharded_pack`` carves the host-side greedy pack along
-the same pods_groups axis: round-robin interleaved blocks of the FFD order
-pack in parallel against per-shard cohort sets, then a cross-shard reconcile
-re-offers each shard's remainder-node cohorts to the merged cohort winners so
-stragglers coalesce. Decisions may differ from the sequential oracle only in
-remainder-node composition (DEVIATIONS 22); the exact global pack remains the
-default everywhere.
-
 A mesh may also span processes: after ``init_multihost`` joins a fleet
 (``torch.distributed`` over gloo), ``make_solver_mesh`` gathers every
 process's device list once and gives each slot the index of the process
@@ -51,7 +42,7 @@ results over gloo (CPU tensors: gloo's CUDA collectives are not relied on),
 and ``sharded_precompute_local`` keeps only this process's rows.
 
 Reference analog: none — the Go scheduler is single-threaded per solve
-(scheduler.go:207-265); sharding the feasibility precompute and the pack is
+(scheduler.go:207-265); sharding the feasibility precompute is
 the device-native scale-out replacing the reference's pre-filter/truncate/
 timeout coping strategies (SURVEY.md §5 long-context note).
 """
@@ -735,316 +726,6 @@ def sharded_precompute_local(p: binpack.PackProblem, mesh: Mesh
              for start, stop in local_result_slice(mesh, Gp)
              if start < G]
     return tensors, spans
-
-
-# --------------------------------------------------------------------------
-# pods/groups-sharded pack
-# --------------------------------------------------------------------------
-
-def pack_shardable(p: binpack.PackProblem, template_limits,
-                   group_ports, vol_group_counts) -> bool:
-    """True when the hierarchical per-shard pack may engage: every shape
-    whose shared mutable state couples groups ACROSS shards must be absent —
-    existing nodes (shared capacity draw-down), nodepool limits (shared
-    budget), host ports (cross-group conflict state), volume attach budgets
-    (shared per-node dicts), minValues floors. The same conservative gate
-    the warm-start restore uses, extended with the exist/limit rows."""
-    has_exist = p.exist_enc is not None and p.exist_enc.mask.shape[0] > 0
-    return (not has_exist
-            and all(lm is None for lm in template_limits)
-            and (group_ports is None or not any(group_ports))
-            and vol_group_counts is None
-            and (p.min_its is None or not bool((p.min_its > 0).any())))
-
-
-def _shard_blocks(order: List[int], n_shards: int) -> List[List[int]]:
-    """Round-robin interleave of the FFD order, one block per shard: every
-    shard sees the full pod-size spectrum in descending order, so its local
-    FFD keeps the gap-filling density the global order has. (Contiguous
-    blocks hand shard 0 all the big pods and the small-pod shards nothing
-    to fill gaps with — measured +17% nodes over interleave at the 100k x
-    4k x 2000-group shape.)"""
-    return [order[i::n_shards] for i in range(max(1, n_shards))]
-
-
-def sharded_pack(p: binpack.PackProblem, t: binpack.PackTensors, groups,
-                 n_shards: int,
-                 initial_zone_counts: Optional[np.ndarray] = None,
-                 exist_counts: Optional[np.ndarray] = None,
-                 host_match_total: Optional[np.ndarray] = None,
-                 max_workers: Optional[int] = None,
-                 warm: Optional[binpack.WarmStart] = None
-                 ) -> binpack.PackResult:
-    """Hierarchical pods/groups-sharded pack (DEVIATIONS 22): carve the FFD
-    order into ``n_shards`` round-robin interleaved blocks (_shard_blocks),
-    pack each against its own cohort set in parallel (numpy releases the
-    GIL on the wide scans), then
-    reconcile cross-shard: merge the cohort sets and re-offer every shard's
-    single-group remainder nodes to the merged winners so stragglers
-    coalesce onto spare capacity another shard opened.
-
-    ``warm`` composes the checkpoint restore with the shard carve: each
-    block packs under its own per-shard WarmStart (global token + shard
-    identity, seed from warm.shard_seeds) and leaves its fresh seed in
-    warm.result_shard_seeds; restore/match stats aggregate onto the
-    parent. A group whose FFD position moved it to another shard breaks
-    both affected blocks' token prefixes from its position on — that shard
-    pair re-packs (cold past the prefix) while untouched shards replay.
-
-    Decision contract vs the sequential oracle (pinned in
-    tests/test_parallel_mesh.py):
-    - pod_errors are EXACT: with the pack_shardable() gate holding (no
-      existing nodes, limits, ports, volumes, minValues), placement failure
-      is a per-group property of the tensors — boarding only redistributes
-      pods that would place anyway.
-    - claims may differ only in remainder-node composition; total placed
-      pods are identical and the reconcile pass strictly reduces node count
-      toward the oracle's.
-    - a warm restore replays checkpointed per-shard state recorded from an
-      identical-token prefix, so warm decisions are byte-identical to the
-      cold sharded pack (the sharded churn fuzzer pins this).
-    """
-    from concurrent.futures import ThreadPoolExecutor
-
-    from ..obs.tracer import TRACER
-
-    def make_packer(w: Optional[binpack.WarmStart] = None):
-        return binpack.Packer(
-            p, t, groups, [None] * p.daemon_overhead.shape[0], [],
-            initial_zone_counts=initial_zone_counts,
-            exist_counts=exist_counts, host_match_total=host_match_total,
-            warm=w)
-
-    probe = make_packer()
-    order = probe.ffd_order()
-    blocks = _shard_blocks(order, max(1, n_shards))
-    if len(blocks) <= 1:
-        # degenerate single block == the sequential pack: the parent warm
-        # applies directly (its seed interoperates with sequential passes)
-        if warm is not None:
-            return make_packer(warm).pack(order=order)
-        return probe.pack(order=order)
-
-    shard_warms: List[Optional[binpack.WarmStart]] = [None] * len(blocks)
-    if warm is not None:
-        seeds = (warm.shard_seeds
-                 if warm.shard_seeds is not None
-                 and len(warm.shard_seeds) == len(blocks)
-                 else [None] * len(blocks))
-        shard_warms = [
-            binpack.WarmStart(
-                global_token=warm.global_token + ("shard", i, len(blocks)),
-                tokens=warm.tokens, seed=seeds[i])
-            for i in range(len(blocks))]
-
-    with TRACER.span("pack.shards", shards=len(blocks)):
-        if warm is not None:
-            packers = [make_packer(w) for w in shard_warms]
-        else:
-            packers = [probe] + [make_packer() for _ in blocks[1:]]
-
-        def run(i: int) -> binpack.PackResult:
-            return packers[i].pack(order=blocks[i])
-
-        workers = max_workers or min(len(blocks), os.cpu_count() or 1)
-        if workers > 1:
-            with ThreadPoolExecutor(max_workers=workers) as ex:
-                results = list(ex.map(run, range(len(blocks))))
-        else:
-            results = [run(i) for i in range(len(blocks))]
-
-    if warm is not None:
-        warm.result_shard_seeds = [w.result_seed for w in shard_warms]
-        warm.restored_pos = sum(w.restored_pos for w in shard_warms)
-        warm.matched = sum(w.matched for w in shard_warms)
-
-    with TRACER.span("pack.reconcile") as sp:
-        merged = _reconcile(p, t, groups, packers, results,
-                            initial_zone_counts, exist_counts,
-                            host_match_total, sp, blocks=blocks, warm=warm)
-    return merged
-
-
-def _group_per_node_cap(groups, g: int) -> Optional[int]:
-    """The per-fresh-node cap the sequential pack applies to group g from
-    its hostname-level constraint (0 = uncapped), or None when the group
-    must not be re-offered at all (hostname pod affinity: all pods must
-    share ONE node, which a split re-offer could violate)."""
-    specs = groups[g].topo or []
-    host_spec = next((s for s in specs
-                      if s.kind in ("spread-host", "anti-host",
-                                    "affinity-host")), None)
-    if host_spec is None:
-        return 0
-    if host_spec.kind == "affinity-host":
-        return None
-    if host_spec.kind == "spread-host":
-        return host_spec.max_skew if host_spec.self_select else 0
-    return 1 if host_spec.self_select else 0
-
-
-def _donor_rows(p, cs, groups, shards: int) -> np.ndarray:
-    """[C] bool: single-node rows whose best surviving instance type still
-    has >= the group-size-aware donor bar (binpack.donor_headroom) of
-    relative headroom over the accumulated requests — the per-shard tail
-    fragments the cross-shard pass coalesces. A row holding several groups
-    takes the MOST EAGER (smallest) of its groups' bars: any small-group
-    fragment aboard makes the re-offer worthwhile."""
-    C = cs.C
-    if C == 0:
-        return np.zeros(0, dtype=bool)
-    m_c = cs.m[:C]
-    bar = np.fromiter(
-        (min((binpack.donor_headroom(len(groups[g].pods), shards)
-              for g in cs.pods_by_group[ci]),
-             default=binpack.DONOR_HEADROOM_DENSE)
-         for ci in range(C)),
-        dtype=np.float64, count=C)
-    need = p.daemon_overhead[m_c] + np.ceil(
-        cs.requests[:C] * (1.0 + bar[:, None])).astype(np.int64)
-    fits = (p.it_alloc[None, :, :] >= need[:, None, :]).all(axis=2)  # [C,T]
-    return (cs.n[:C] == 1) & (fits & cs.it_set[:C]).any(axis=1)
-
-
-def _reconcile(p, t, groups, packers, results, izc, exist_counts,
-               host_match_total, span, blocks=None, warm=None
-               ) -> binpack.PackResult:
-    """Cross-shard pass over the merged cohort winners: fold every shard's
-    cohorts into one set, holding back each shard's underfilled single-node
-    tail rows (see _donor_rows); then re-pack the held-back pods through a
-    sequential mini-pack over the merged set — boarding scan first, fresh
-    efficient cohorts for the leftovers, original-template re-open as the
-    guaranteed floor. Items run in global FFD order, so fragments from
-    different shards recombine exactly the way the sequential pack mixes
-    groups; a row holding a hostname-pod-affinity group is never held back
-    (its pods must stay on ONE node, which a split re-offer could
-    violate).
-
-    With a ``warm`` whose tokens fully match the recorded pass, the fold is
-    memoized (warm.reconcile_memo, persisted across passes by the
-    ProblemState): the merged rows and the donor pool restore from the
-    snapshot with group indices positionally remapped — the same trick as
-    Packer._remap_checkpoint — and the per-row donor scan is skipped. The
-    donor re-pack itself always runs (it consults current tensors and
-    per-group caps), so decisions stay byte-identical either way."""
-    rp = binpack.Packer(
-        p, t, groups, [None] * p.daemon_overhead.shape[0], [],
-        initial_zone_counts=izc, exist_counts=exist_counts,
-        host_match_total=host_match_total)
-    merged = rp.cohorts
-    ffd_pos = {g: i for i, g in enumerate(rp.ffd_order())}
-    # pods to re-pack, AGGREGATED per (group, zone, cap): one group's tail
-    # fragments can sit in many donor rows across shards; one combined
-    # re-offer makes the mini-pack cost O(distinct groups), not O(row
-    # boardings), with identical placement semantics (_fill_cohorts splits
-    # a combined fill across receivers exactly as per-fragment calls would)
-    pool: dict = {}  # (g, zone_or_None, cap) -> [fill, donor_template_m]
-    held = 0
-    memo_token = None
-    order_flat: tuple = ()
-    if warm is not None and blocks is not None:
-        memo_token = (warm.global_token,
-                      tuple(tuple(warm.tokens[g] for g in b) for b in blocks))
-        order_flat = tuple(g for b in blocks for g in b)
-    memo = warm.reconcile_memo if warm is not None else None
-    hit = (memo is not None and memo_token is not None
-           and memo["token"] == memo_token
-           and len(memo["order"]) == len(order_flat))
-    if hit:
-        # identical per-block tokens => the shard packs replayed the
-        # recorded pass byte-for-byte (modulo group renumbering), so the
-        # fold's output is the snapshot with indices remapped positionally
-        remap = dict(zip(memo["order"], order_flat))
-        C = memo["C"]
-        cap = merged._cap
-        while cap < max(C, 1):
-            cap *= 2
-        merged._cap = cap
-        for name in binpack.CohortSet._ROW_FIELDS:
-            src = memo["rows"][name]
-            if name == "aboard":
-                rem = np.zeros_like(src)
-                for og, ng in remap.items():
-                    rem[:, ng] = src[:, og]
-                src = rem
-            out = np.zeros((cap,) + src.shape[1:], src.dtype)
-            out[:C] = src[:C]
-            setattr(merged, name, out)
-        merged.C = C
-        merged.pods_by_group = [{remap[g]: f for g, f in d.items()}
-                                for d in memo["pods_by_group"]]
-        merged._okz_rows = {}
-        pool = {(remap[g], zone, pc): list(v)
-                for (g, zone, pc), v in memo["pool"].items()}
-        held = memo["held"]
-    else:
-        for res in results:
-            cs = res.cohorts
-            donor = _donor_rows(p, cs, groups, len(results))
-            for ci in range(cs.C):
-                pbg = cs.pods_by_group[ci]
-                caps = ([_group_per_node_cap(groups, g) for g in pbg]
-                        if donor[ci] else [])
-                if donor[ci] and all(c is not None for c in caps):
-                    zone = int(cs.zone[ci])
-                    zone = None if zone < 0 else zone
-                    m = int(cs.m[ci])
-                    held += 1
-                    for (g, fill), cap in zip(pbg.items(), caps):
-                        slot = pool.setdefault((g, zone, cap), [0, m])
-                        slot[0] += fill
-                else:
-                    merged.append_row_from(cs, ci)
-        if memo_token is not None:
-            # snapshot BEFORE the donor re-pack mutates merged; indices in
-            # the snapshot are THIS pass's — future hits remap positionally
-            warm.reconcile_memo = {
-                "token": memo_token, "order": order_flat, "C": merged.C,
-                "rows": {name: getattr(merged, name)[:merged.C].copy()
-                         for name in binpack.CohortSet._ROW_FIELDS},
-                "pods_by_group": [dict(d) for d in merged.pods_by_group],
-                "pool": {k: list(v) for k, v in pool.items()},
-                "held": held}
-    # merge shard errors (disjoint by group: each group packs in one shard)
-    errors: dict = {}
-    limit_constrained = False
-    for res in results:
-        errors.update(res.errors)
-        limit_constrained |= res.limit_constrained
-    boarded = 0
-    # zone None (uncommitted) sorts as -1: one group can pool both a
-    # zone-free and a zone-committed tail, and a mixed-type tuple compare
-    # would raise on the tie through (ffd_pos, g, fill, m)
-    items = sorted(((ffd_pos[g], g, fill, m, zone, cap)
-                    for (g, zone, cap), (fill, m) in pool.items()),
-                   key=lambda t: t[:4] + (-1 if t[4] is None else t[4], t[5]))
-    for _, g, fill, m, zone, cap in items:
-        placed = rp._fill_cohorts(g, fill, zone, cap)
-        boarded += placed
-        left = fill - placed
-        if left > 0:
-            left -= rp._place_new(g, left, zone, cap)
-        if left > 0:
-            # guaranteed floor: re-open on a donor's own template — the
-            # donated pods fit there before, so they fit a fresh node too
-            it_ok = (t.it_ok_z[g, m, :, zone] if zone is not None
-                     else t.it_ok[g, m])
-            per = rp._fill_ceiling(g, m, t.ppn[g, m], it_set) \
-                if (it_set := it_ok & (t.ppn[g, m] >= 1)).any() else 0
-            if cap:
-                per = min(per, cap)
-            opened = rp._open_nodes(g, m, zone, left, per) if per > 0 else 0
-            if opened < left:
-                raise RuntimeError(
-                    "sharded-pack reconcile lost capacity re-opening "
-                    f"tail fragments of group {g} ({left - opened} pods)")
-    span.set(donor_rows=held, items=len(items), boarded_pods=boarded,
-             merged="memo" if hit else "fold")
-    out = binpack.PackResult()
-    out.errors = errors
-    out.limit_constrained = limit_constrained
-    out.cohorts = merged
-    return out
 
 
 def init_multihost(coordinator_address: Optional[str] = None,

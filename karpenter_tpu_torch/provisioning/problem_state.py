@@ -29,16 +29,15 @@ What remains HANDLE-private (per subscriber):
   cold solve by construction: the packer is sequentially deterministic, so
   equal inputs up to position P imply byte-equal state at P. Packer state
   is one solver's memory — it is never shared across subscribers.
-- **mesh attachment** (attach_mesh) + per-shard exist tokens + the
-  cross-shard reconcile fold memo — bound to this subscriber's mesh carve.
+- **mesh attachment** (attach_mesh) + per-shard exist tokens — bound to
+  this subscriber's mesh carve.
 - **tensors memo** — the ((group_part, exist_part), PackTensors) of the
   last precompute, a single slot keyed by this subscriber's own group set.
 - **reporting** — ``last``/``stats`` and the cold/delta ``encode_kind``,
   tracked against this handle's OWN previous pass.
 
-Sharded-state rows (attach_mesh: the state carved along the mesh's
-pods_groups axis — per-shard exist-row tokens, per-shard pack seeds, the
-cross-shard reconcile fold memo):
+Sharded-state rows (attach_mesh: the existing-node rows carved along the
+mesh's pods_groups axis into per-shard exist-row tokens):
 
 | delta (sharded state)                   | effect                         |
 |-----------------------------------------|--------------------------------|
@@ -46,12 +45,8 @@ cross-shard reconcile fold memo):
 |                                         | and re-upload; every other     |
 |                                         | shard's device block is reused |
 |                                         | (mesh placer exist_shards)     |
-| group moved shards (FFD position hop)   | both affected blocks re-pack   |
-|                                         | cold past their shared prefix; |
-|                                         | untouched shards replay their  |
-|                                         | seeds; reconcile fold re-runs  |
-| mesh attach / detach / shard-count flip | per-shard seeds + reconcile    |
-|                                         | memo dropped (attach_mesh);    |
+| mesh attach / detach / shard-count flip | exist tokens + tensors memo    |
+|                                         | dropped (attach_mesh);         |
 |                                         | row + stack caches unaffected  |
 | new vocab entry (overflow) /            | cold everywhere — same as the  |
 | catalog change                          | plane matrix, per shard too    |
@@ -105,16 +100,14 @@ class ProblemState:
         self._last_vocab = None
         # warm-start seed from the previous pack
         self.seed: Optional[binpack.PackSeed] = None
-        # content digest over the warm seed(s), recorded by finish_pack and
+        # content digest over the warm seed, recorded by finish_pack and
         # verified by warm_start when a StateAuditor is attached (None
         # otherwise — the unaudited path never pays for it)
         self._warm_digest: Optional[int] = None
-        # sharded-state attachment (attach_mesh): per-shard pack seeds and
-        # the cross-shard reconcile fold memo are only meaningful against
-        # ONE (mesh identity, exist-shard count, pack-shard count) tuple
-        self._attach_key: tuple = (None, 0, 0)
-        self.shard_seeds: Optional[list] = None
-        self._reconcile_memo: Optional[dict] = None
+        # sharded-state attachment (attach_mesh): the per-shard exist-row
+        # tokens and the tensors memo are only meaningful against ONE
+        # (mesh identity, exist-shard count) pair
+        self._attach_key: tuple = (None, 0)
         # per-shard exist-row tokens of the LAST node_rows call (None when
         # unsharded / the padded axis doesn't divide): build_problem copies
         # them onto PackProblem.exist_shard_tokens for the mesh placer
@@ -155,22 +148,17 @@ class ProblemState:
         if self.plane.auditor is not None:
             self.plane.auditor.begin_pass()
 
-    def attach_mesh(self, mesh_token, exist_shards: int,
-                    pack_shards: int) -> None:
+    def attach_mesh(self, mesh_token, exist_shards: int) -> None:
         """Bind the handle to a mesh/shard-count identity (called by each
         TensorScheduler construction). A flip — mesh recreated over other
-        devices, shard count changed, mesh dropped — invalidates every
-        per-shard artifact: seeds are keyed by (shard index, shard count)
-        inside their global tokens and the reconcile memo by the block
-        carve, so none of them can describe the new carve. Row, stack and
-        topology caches live on the plane, are shard-independent, and
-        survive untouched."""
-        key = (mesh_token, int(exist_shards), int(pack_shards))
+        devices, shard count changed, mesh dropped — invalidates the
+        per-shard exist-row tokens and the tensors memo, neither of which
+        can describe the new carve. Row, stack and topology caches live on
+        the plane, are shard-independent, and survive untouched."""
+        key = (mesh_token, int(exist_shards))
         if key == self._attach_key:
             return
         self._attach_key = key
-        self.shard_seeds = None
-        self._reconcile_memo = None
         self.exist_shard_tokens = None
         self.tensors_memo = None
 
@@ -341,13 +329,11 @@ class ProblemState:
         if auditor is not None and self._warm_digest is not None:
             # restore-time digest check: a corrupted checkpoint would
             # otherwise replay wrong packer state as "warm" decisions
-            if _audit.warm_digest(self.seed, self.shard_seeds) != \
-                    self._warm_digest:
+            if _audit.warm_digest(self.seed) != self._warm_digest:
                 auditor.incident(
                     "warm_checkpoint",
                     "seed failed its restore-time digest")
                 self.seed = None
-                self.shard_seeds = None
                 self._warm_digest = None
             else:
                 auditor.audited("warm_checkpoint")
@@ -370,30 +356,13 @@ class ProblemState:
                 None if exist_counts is None else exist_counts[i].tobytes(),
                 None if host_total is None else int(host_total[i])))
         return binpack.WarmStart(global_token=global_token, tokens=tokens,
-                                 seed=self.seed,
-                                 shard_seeds=self.shard_seeds,
-                                 reconcile_memo=self._reconcile_memo)
+                                 seed=self.seed)
 
     def finish_pack(self, warm: Optional[binpack.WarmStart]) -> None:
         if warm is None:
             return
-        # the reconcile memo is token-guarded on read, so it survives
-        # sequential passes untouched and is replaced when the fold re-ran
-        self._reconcile_memo = warm.reconcile_memo
-        if warm.result_shard_seeds is not None:
-            # sharded pack: one seed per FFD block. The sequential seed is
-            # dropped — it describes a pack this pass superseded — and
-            # symmetrically below a sequential pass drops the shard seeds.
-            self.shard_seeds = warm.result_shard_seeds
-            self.seed = None
-            self.last["warm"] = (f"shards:prefix:{warm.restored_pos}"
-                                 if warm.restored_pos else "shards:recorded")
-            self.last["warm_restored"] = warm.restored_pos
-            self.last["warm_matched"] = warm.matched
-            self.stats["warm_restored_groups"] += warm.restored_pos
-        elif warm.result_seed is not None:
+        if warm.result_seed is not None:
             self.seed = warm.result_seed
-            self.shard_seeds = None
             self.last["warm"] = (f"prefix:{warm.restored_pos}"
                                  if warm.restored_pos else "recorded")
             self.last["warm_restored"] = warm.restored_pos
@@ -404,11 +373,9 @@ class ProblemState:
             # full pack, and the stale seed must not survive — its
             # checkpoints no longer describe the latest decisions
             self.seed = None
-            self.shard_seeds = None
             self.last["warm"] = "disabled:inexpressible"
         if self.plane.auditor is not None:
-            self._warm_digest = _audit.warm_digest(self.seed,
-                                                   self.shard_seeds)
+            self._warm_digest = _audit.warm_digest(self.seed)
         else:
             # keep the recorded digest in lockstep with the seeds: an
             # auditor detached for a few passes (bench off-phase) must not

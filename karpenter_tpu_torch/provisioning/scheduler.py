@@ -19,7 +19,8 @@ from ..api import labels as api_labels
 from ..api.nodeclaim import NodeClaim as APINodeClaim, NodeClaimSpec
 from ..api.nodepool import NODEPOOL_HASH_VERSION, NodePool
 from ..api.objects import ObjectMeta, OwnerReference, Pod, Taint
-from ..cloudprovider.types import InstanceType, satisfies_min_values, truncate
+from ..cloudprovider.types import (InstanceType, below_worst_launch_price,
+                                   satisfies_min_values, truncate)
 from ..scheduling import taints as scheduling_taints
 from ..scheduling.hostports import HostPortUsage, get_host_ports
 from ..scheduling.requirement import IN, Requirement
@@ -203,9 +204,8 @@ class InFlightNodeClaim:
     def remove_instance_types_by_price_and_min_values(self, reqs: Requirements,
                                                       max_price: float):
         """Consolidation price filter (nodeclaim.go:136-145)."""
-        self.instance_type_options = [
-            it for it in self.instance_type_options
-            if it.offerings.available().worst_launch_price(reqs) < max_price]
+        self.instance_type_options, _ = below_worst_launch_price(
+            self.instance_type_options, reqs, max_price)
         self._min_alloc = None
         _, err = satisfies_min_values(self.instance_type_options, reqs)
         if err is not None:

@@ -9,9 +9,9 @@ semantics always match the reference (scheduler.go) either way.
 
 The precompute runs on ``device`` (default ``cuda``; ``"cpu"`` runs the
 kernels' plain PyTorch versions), or once per slot of a ``mesh``
-(parallel/mesh.py). The persistent cross-pass ProblemState, the sharded
-pack and the flight recorder (every solve captured as a replayable record,
-flightrec/) are carried as in the JAX package.
+(parallel/mesh.py). The persistent cross-pass ProblemState and the flight
+recorder (every solve captured as a replayable record, flightrec/) are
+carried as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,14 +40,6 @@ from .grouping import PodGroup, group_pods, partition_pods
 from .scheduler import (MAX_INSTANCE_TYPES, NodeClaimTemplate, Results, Scheduler,
                         _daemon_overhead, _req_to_selector, claim_name_seq)
 from .topology import ClusterView, Topology
-
-
-def _single_process() -> bool:
-    """Gate for the exist-only delta kernel (binpack.exist_delta): it runs
-    over the full node axis on one device, which a multi-process fleet
-    can't serve. The port has no multi-process mesh, so this always
-    holds."""
-    return True
 
 
 def _pow2_bucket(n: int, minimum: int) -> int:
@@ -287,16 +279,13 @@ class TensorNodeClaim:
         self.requirements.delete(api_labels.LABEL_HOSTNAME)
 
     def remove_instance_types_by_price_and_min_values(self, reqs, max_price: float):
-        """Consolidation price filter (nodeclaim.go:136-145), the options'
-        worst launch prices read as one vector."""
-        from ..cloudprovider.types import WorstLaunchPrices, satisfies_min_values
+        """Consolidation price filter (nodeclaim.go:136-145)."""
+        from ..cloudprovider.types import (below_worst_launch_price,
+                                           satisfies_min_values)
         with TRACER.span("disruption.prices") as sp:
-            prices = WorstLaunchPrices(self.instance_type_options)
-            worst = prices.vector(reqs)
-            sp.set(vectors=prices.built, types=worst.size)
-        self.instance_type_options = [
-            it for it, w in zip(self.instance_type_options, worst)
-            if w < max_price]
+            self.instance_type_options, prices = below_worst_launch_price(
+                self.instance_type_options, reqs, max_price)
+            sp.set(vectors=prices.built, types=len(prices.catalog))
         _, err = satisfies_min_values(self.instance_type_options, reqs)
         if err is not None:
             return None, err
@@ -340,8 +329,7 @@ class TensorScheduler:
                  initial_zone_counts=None, force_tensor: bool = False,
                  mesh=None, catalog_token: Optional[tuple] = None,
                  circuit: Optional[SolverCircuitBreaker] = None,
-                 unavailable=None, problem_state=None,
-                 pack_shards: int = 0, device=None):
+                 unavailable=None, problem_state=None, device=None):
         # where the feasibility precompute runs: cuda unless the caller
         # names another device (with a mesh: the device of its first slot,
         # which also runs the exist-only delta); raises here when CUDA is
@@ -360,15 +348,6 @@ class TensorScheduler:
         # optional parallel.mesh.Mesh: run the feasibility precompute once
         # per mesh slot (parallel/mesh.py) instead of on one device
         self.mesh = mesh
-        # > 1: pods/groups-sharded HIERARCHICAL pack (parallel/mesh.
-        # sharded_pack, DEVIATIONS 22) — per-shard packs + cross-shard
-        # remainder reconcile. Opt-in: decisions may differ from the
-        # sequential pack in remainder-node composition (pod errors stay
-        # exact), so the default 0 keeps every caller on the oracle-exact
-        # sequential pack. Engages only when the problem passes the
-        # pack_shardable() gate; a ProblemState warm start composes (the
-        # pack carries per-shard seeds + a reconcile memo on the WarmStart).
-        self.pack_shards = pack_shards
         # precomputed catalog cache key (_catalog_cache_key of the union
         # catalog): ONLY valid when the caller guarantees the catalog is
         # never mutated in place
@@ -439,18 +418,17 @@ class TensorScheduler:
         if problem_state is not None:
             # bind the state to this scheduler's mesh/shard identity: a
             # flip (mesh recreated over other devices, shard count change,
-            # mesh dropped) drops the per-shard seeds + reconcile memo so
-            # a mesh<->single-device swap in one process can never replay
+            # mesh dropped) drops the per-shard exist tokens + tensors memo
+            # so a mesh<->single-device swap in one process can never reuse
             # artifacts recorded under the other carve
             if mesh is not None:
                 from ..parallel.mesh import (PODS_GROUPS_AXIS,
                                              mesh_cache_key)
                 problem_state.attach_mesh(
                     mesh_cache_key(mesh),
-                    int(dict(mesh.shape).get(PODS_GROUPS_AXIS, 0)),
-                    pack_shards)
+                    int(dict(mesh.shape).get(PODS_GROUPS_AXIS, 0)))
             else:
-                problem_state.attach_mesh(None, 0, pack_shards)
+                problem_state.attach_mesh(None, 0)
 
     # -- public -------------------------------------------------------------
 
@@ -1297,8 +1275,7 @@ class TensorScheduler:
                     ps.last["precompute"] = "reused"
                 elif (memo is not None and memo[0][0] == memo_tok[0]
                       and memo_tok[1] is not None
-                      and problem.exist_enc is not None
-                      and _single_process()):
+                      and problem.exist_enc is not None):
                     import dataclasses
                     exist_ok, exist_cap = binpack.exist_delta(
                         problem, device=self.device)
@@ -1383,39 +1360,21 @@ class TensorScheduler:
             warm = self.problem_state.warm_start(
                 self, vocab, groups, templates, limits,
                 izc, exist_counts, host_total, problem.exist_token)
-        use_sharded = False
-        if self.pack_shards > 1:
-            # warm no longer forces the sequential pack: sharded_pack
-            # carries per-shard WarmStarts (warm.shard_seeds) through the
-            # same checkpoint machinery, so the sharded state warm-replays
-            from ..parallel.mesh import pack_shardable
-            use_sharded = pack_shardable(problem, limits, group_ports,
-                                         vol_group_counts)
         with TRACER.span("pack", groups=len(groups)) as psp:
-            if use_sharded:
-                from ..parallel.mesh import sharded_pack
-                psp.set(sharded=self.pack_shards)
-                pr = sharded_pack(problem, tensors, groups,
-                                  self.pack_shards,
-                                  initial_zone_counts=izc,
-                                  exist_counts=exist_counts,
-                                  host_match_total=host_total,
-                                  warm=warm)
-            else:
-                packer = binpack.Packer(problem, tensors, groups, limits,
-                                        limit_resources,
-                                        initial_zone_counts=izc,
-                                        exist_order=sn_order,
-                                        exist_counts=exist_counts,
-                                        host_match_total=host_total,
-                                        vol_group_counts=vol_group_counts,
-                                        vol_node_remaining=vol_node_remaining,
-                                        group_ports=group_ports,
-                                        exist_port_block=exist_port_block,
-                                        warm=warm)
-                pr = packer.pack()
-                psp.set(existing_ms=packer.existing_ms,
-                        existing_scanned=packer.existing_scanned)
+            packer = binpack.Packer(problem, tensors, groups, limits,
+                                    limit_resources,
+                                    initial_zone_counts=izc,
+                                    exist_order=sn_order,
+                                    exist_counts=exist_counts,
+                                    host_match_total=host_total,
+                                    vol_group_counts=vol_group_counts,
+                                    vol_node_remaining=vol_node_remaining,
+                                    group_ports=group_ports,
+                                    exist_port_block=exist_port_block,
+                                    warm=warm)
+            pr = packer.pack()
+            psp.set(existing_ms=packer.existing_ms,
+                    existing_scanned=packer.existing_scanned)
             if self.problem_state is not None:
                 self.problem_state.finish_pack(warm)
                 psp.set(warm=self.problem_state.last["warm"],

@@ -247,10 +247,10 @@ class RemoteNodeClaim:
         return self.api_nodeclaim
 
     def remove_instance_types_by_price_and_min_values(self, reqs, max_price):
-        from ..cloudprovider.types import satisfies_min_values
-        self.instance_type_options = [
-            it for it in self.instance_type_options
-            if it.offerings.available().worst_launch_price(reqs) < max_price]
+        from ..cloudprovider.types import (below_worst_launch_price,
+                                           satisfies_min_values)
+        self.instance_type_options, _ = below_worst_launch_price(
+            self.instance_type_options, reqs, max_price)
         _, err = satisfies_min_values(self.instance_type_options, reqs)
         if err is not None:
             return None, err

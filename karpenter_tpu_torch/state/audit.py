@@ -122,26 +122,22 @@ _CHECKPOINT_FIELDS = ("pos", "C", "rows", "existing", "error_log",
                       "g_of_pos")
 
 
-def warm_digest(seed, shard_seeds) -> Optional[int]:
+def warm_digest(seed) -> Optional[int]:
     """Digest of the warm-pack checkpoint state whose SILENT corruption
-    could replay wrong decisions: each seed's per-group prefix tokens plus
+    could replay wrong decisions: the seed's per-group prefix tokens plus
     its checkpoints' numeric packer state. The global token (which embeds
     the whole vocab — megabytes of encoding the digest must not walk every
     pass) and pods_by_group (a live object graph) are excluded
     deliberately: corrupting either breaks the token/prefix match and
     forces a cold pack — self-healing, never silent."""
-    seeds = [seed] if seed is not None else []
-    seeds += [s for s in (shard_seeds or []) if s is not None]
-    if not seeds:
+    if seed is None:
         return None
-    crc = 0
-    for s in seeds:
-        crc = zlib.crc32(b"S", crc)
-        crc = _crc(getattr(s, "ffd_tokens", None), crc)
-        for ck in getattr(s, "checkpoints", None) or ():
-            crc = zlib.crc32(b"C", crc)
-            for f in _CHECKPOINT_FIELDS:
-                crc = _crc(getattr(ck, f, None), crc)
+    crc = zlib.crc32(b"S", 0)
+    crc = _crc(getattr(seed, "ffd_tokens", None), crc)
+    for ck in getattr(seed, "checkpoints", None) or ():
+        crc = zlib.crc32(b"C", crc)
+        for f in _CHECKPOINT_FIELDS:
+            crc = _crc(getattr(ck, f, None), crc)
     return crc
 
 

@@ -53,11 +53,11 @@ sharing can never change a decision):
 
 What each SUBSCRIBER HANDLE keeps private (see ProblemState):
 
-- warm-pack checkpoints (``seed`` / ``shard_seeds``) — packer state is
+- warm-pack checkpoints (``seed``) — packer state is
   sequential solver memory, valid only against the subscriber's own last
   pack; sharing would replay another solver's decisions.
-- mesh attachment (``attach_mesh``) + per-shard exist tokens + the
-  cross-shard reconcile memo — bound to the subscriber's mesh carve.
+- mesh attachment (``attach_mesh``) + per-shard exist tokens — bound to
+  the subscriber's mesh carve.
 - the tensors memo (group-part/exist-part device tensors of the LAST
   precompute) — a single slot keyed by the subscriber's own group set;
   shared, it would thrash between provisioning's and disruption's group
@@ -97,8 +97,8 @@ and wire-delta specifics remain in those entries):
 | drought mark/expiry            | masked device slot     | warm pack         |
 | (unavailable-offerings bump)   | re-keyed per pattern   | invalidated via   |
 |                                | set (vocab-shared)     | global token      |
-| mesh attach/detach/shard flip  | none (rows, stacks,    | per-shard seeds + |
-|                                | memos shard-agnostic)  | reconcile memo    |
+| mesh attach/detach/shard flip  | none (rows, stacks,    | exist tokens +    |
+|                                | memos shard-agnostic)  | tensors memo      |
 |                                |                        | dropped           |
 | subscriber join/leave          | refcount only — caches | fresh handle      |
 |                                | never invalidate       | starts cold on    |

@@ -420,12 +420,9 @@ class StateCorruptor:
         if handle is None:
             return None
         arrays: list = []
-        for seed in [handle.seed] + list(handle.shard_seeds or []):
-            if seed is None:
-                continue
-            for ck in getattr(seed, "checkpoints", ()) or ():
-                self._arrays_in(ck.rows, arrays)
-                self._arrays_in(ck.exist_avail, arrays)
+        for ck in getattr(handle.seed, "checkpoints", ()) or ():
+            self._arrays_in(ck.rows, arrays)
+            self._arrays_in(ck.exist_avail, arrays)
         if not arrays:
             return None
         # every warm fault is an in-place flip: the seed's digest was

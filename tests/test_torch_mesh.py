@@ -1,7 +1,6 @@
 """parallel/mesh.py on torch devices, held against the JAX package's mesh:
 the sharded precompute (K1-K3 per mesh slot) on 1-, 2-, 4- and 8-slot CPU
-meshes, the padding edges, the sharded pack's contract, the exist-side
-upload caches, and the device-loss ladder. The port's meshes repeat the CPU
+meshes, the padding edges, the exist-side upload caches, and the device-loss ladder. The port's meshes repeat the CPU
 device (make_solver_mesh(devices=[cpu] * n)); the JAX package's run on the
 conftest's virtual CPU devices. All outputs are bool or integer: equality
 is exact."""
@@ -16,16 +15,15 @@ from karpenter_tpu.ops import binpack as jbinpack
 from karpenter_tpu.parallel import mesh as jmesh
 from karpenter_tpu.utils.chaos import DeviceKiller
 from karpenter_tpu_torch.metrics.registry import STATE_AUDIT
-from karpenter_tpu_torch.obs.tracer import TRACER
 from karpenter_tpu_torch.ops import binpack as tbinpack
 from karpenter_tpu_torch.ops import kernels
 from karpenter_tpu_torch.parallel import mesh as tmesh
 from karpenter_tpu_torch.provisioning.problem_state import ProblemState
 
 from test_torch_support import (JAX, PORT, PACK_FIELDS, ROOTS,
-                                assert_tensors_equal, bench_workload,
-                                build_problem, cpu_mesh, digest, nodepool,
-                                pkg, pod, scheduler, state_node)
+                                assert_tensors_equal, build_problem,
+                                cpu_mesh, digest, nodepool, pkg, pod,
+                                scheduler, state_node)
 from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
@@ -65,20 +63,13 @@ def mix_pods(root, n_deploys, pods_per=7):
     return pods
 
 
-def solve(root, pods, its, mesh=None, pack_shards=0, state_nodes=(),
-          problem_state=None):
+def solve(root, pods, its, mesh=None, state_nodes=(), problem_state=None):
     ts = scheduler(root, [nodepool(root, "default")], {"default": its},
                    state_nodes=list(state_nodes), mesh=mesh,
-                   pack_shards=pack_shards, problem_state=problem_state)
+                   problem_state=problem_state)
     results = ts.solve(pods)
     assert ts.fallback_reason == "", ts.fallback_reason
     return results
-
-
-def last_span(name):
-    spans = [s for s in TRACER.last().spans if s.name == name]
-    assert len(spans) == 1, [s.name for s in TRACER.last().spans]
-    return spans[0]
 
 
 # -- the mesh itself ---------------------------------------------------------
@@ -182,93 +173,6 @@ def test_mesh_solve_exact_parity_padding_edges(n_deploys, n_its):
         assert digest(r_mesh, pods) == digest(r_single, pods)
         got[root] = digest(r_mesh, pods)
     assert got[JAX] == got[PORT]
-
-
-# -- the sharded pack --------------------------------------------------------
-
-
-def test_sharded_pack_contract_vs_sequential_oracle():
-    """Pod errors exact, placed pods exact, node count in the reconcile
-    envelope, the hierarchical path engaged — and the port's sharded pack
-    makes the JAX package's decisions."""
-    got = {}
-    for root in ROOTS:
-        its = pkg(root).kwok.construct_instance_types()[:48]
-        pods = mix_pods(root, 40, pods_per=25)
-        pods += [pod(root, f"impossible-{i}", cpu="1000",
-                     labels={"app": "impossible"}) for i in range(3)]
-        r_seq = solve(root, pods, its)
-        r_sh = solve(root, pods, its, pack_shards=4)
-        if root == PORT:
-            assert last_span("pack").attrs.get("sharded") == 4
-        assert r_sh.pod_errors == r_seq.pod_errors and r_seq.pod_errors
-        placed = lambda r: sum(len(nc.pods) for nc in r.new_nodeclaims)  # noqa: E731
-        assert placed(r_sh) == placed(r_seq)
-        n_seq, n_sh = len(r_seq.new_nodeclaims), len(r_sh.new_nodeclaims)
-        assert n_sh <= int(np.ceil(n_seq * 1.05)) + 4, (n_sh, n_seq)
-        got[root] = digest(r_sh, pods)
-    assert got[JAX] == got[PORT]
-
-
-def test_sharded_pack_bench_mix_matches_jax():
-    """chip_smoke's sharded-pack phase at a small size: the benchmark mix
-    (topology-heavy) through pack_shards=4 makes the JAX package's
-    decisions, and its pod errors are the sequential pack's."""
-    got = {}
-    for root in ROOTS:
-        pools, its, _, pods = bench_workload(root, 900, 200, n_deploys=18)
-        r_seq = scheduler(root, pools, its).solve(pods)
-        ts = scheduler(root, pools, its, pack_shards=4)
-        r_sh = ts.solve(pods)
-        assert ts.fallback_reason == ""
-        assert r_sh.pod_errors == r_seq.pod_errors
-        got[root] = (digest(r_sh, pods), len(r_sh.new_nodeclaims),
-                     len(r_seq.new_nodeclaims))
-    assert got[JAX] == got[PORT]
-
-
-def test_sharded_pack_single_shard_and_single_group_degenerate():
-    its = pkg(PORT).kwok.construct_instance_types()[:24]
-    for pods, shards in ((mix_pods(PORT, 6), 1),
-                         (mix_pods(PORT, 1, pods_per=40), 4)):
-        r_seq = solve(PORT, pods, its)
-        r_sh = solve(PORT, pods, its, pack_shards=shards)
-        assert digest(r_sh, pods) == digest(r_seq, pods)
-
-
-def test_sharded_pack_gate_existing_nodes_forces_sequential():
-    its = pkg(PORT).kwok.construct_instance_types()[:24]
-    pods = mix_pods(PORT, 8, pods_per=10)
-    nodes = [state_node(PORT, f"existing-{i}", "default", "8", "32Gi", True)
-             for i in range(3)]
-    r_sh = solve(PORT, pods, its, pack_shards=4, state_nodes=nodes)
-    assert "sharded" not in last_span("pack").attrs
-    r_seq = solve(PORT, pods, its, state_nodes=nodes)
-    assert digest(r_sh, pods) == digest(r_seq, pods)
-
-
-def test_pack_shardable_gate_direct():
-    _, p = build_problem(PORT, problem_workload(PORT, n_groups=3, n_its=12))
-    assert tmesh.pack_shardable(p, [None], None, None)
-    assert not tmesh.pack_shardable(p, [{"cpu": 100}], None, None)
-    assert not tmesh.pack_shardable(p, [None], [set(), {80}, set()], None)
-    assert not tmesh.pack_shardable(p, [None], None, {0: 2})
-
-
-def test_sharded_pack_reconcile_memo_reused_on_unchanged_warm():
-    its = pkg(PORT).kwok.construct_instance_types()[:24]
-    pods = mix_pods(PORT, 12, pods_per=9)
-    ps = ProblemState()
-    oracle = solve(PORT, pods, its, pack_shards=4)
-    assert last_span("pack").attrs.get("sharded") == 4
-    r1 = solve(PORT, pods, its, pack_shards=4, problem_state=ps)
-    assert last_span("pack.reconcile").attrs.get("merged") == "fold"
-    r2 = solve(PORT, pods, its, pack_shards=4, problem_state=ps)
-    span2 = last_span("pack.reconcile")
-    assert span2.attrs.get("merged") == "memo"
-    assert span2.attrs.get("donor_rows") is not None
-    for r in (r1, r2):
-        assert digest(r, pods) == digest(oracle, pods)
 
 
 class TestMultihostHelpers:

@@ -11,13 +11,15 @@ and of the cheapest type under p0 that its pods fill. Commands are
 compared by name: decision, candidate, replacement options in order and
 the simulated placements."""
 
+import importlib
 import json
 from pathlib import Path
 
 import numpy as np
 import pytest
 
-from test_torch_support import JAX, PORT, ROOTS, LiveEnv, live_pkg, pkg, pod
+from test_torch_support import (JAX, PORT, ROOTS, LiveEnv, live_pkg, nodepool,
+                                pkg, pod)
 from test_torch_support import device_series_kept, tracer_kept  # noqa: F401
 
 from benchmark import spot_spec
@@ -204,6 +206,65 @@ def test_keyed_worst_prices_equal_the_per_type_loop(case):
     assert np.array_equal(again, vector[::-1])
     if case == "one zone":
         assert 0 < np.isinf(vector).sum() < len(vector)
+
+
+def _claim(root: str, kind: str, catalog: list):
+    """A claim of ``kind`` in ``root`` whose options are ``catalog``."""
+    imp = lambda m: importlib.import_module(f"{root}.{m}")  # noqa: E731
+    if kind == "host":
+        sched = imp("provisioning.scheduler")
+        topo = imp("provisioning.topology")
+        claim = sched.InFlightNodeClaim(
+            sched.NodeClaimTemplate(nodepool(root)),
+            topo.Topology(topo.ClusterView(), {}, []), {}, catalog)
+        claim._min_alloc = {"cpu": 1}
+        return claim
+    if kind == "sidecar":
+        return imp("sidecar.client").RemoteNodeClaim(
+            api_nodeclaim=None, pods=[], instance_type_options=list(catalog))
+    return imp("provisioning.tensor_scheduler").TensorNodeClaim(
+        None, None, list(catalog), [], {})
+
+
+@pytest.mark.parametrize("kind", ["host", "sidecar", "tensor"])
+def test_every_claims_price_filter_is_the_loop(kind):
+    """Each claim kind's consolidation price filter keeps, in order, the
+    options whose per-type worst launch price is below the bound, and
+    makes the JAX package's same claim's answer, minValues verdict
+    included."""
+    got = {}
+    for root in ROOTS:
+        k = pkg(root)
+        catalog = _catalog(root)
+        names = [it.name for it in catalog]
+        cases = dict(REQUIREMENTS)
+        cases["instance-type minValues"] = [
+            (k.labels.LABEL_INSTANCE_TYPE, names, len(names))]
+        answers = []
+        for case in sorted(cases):
+            reqs = k.requirements.Requirements([
+                k.requirement.Requirement(key, k.requirement.IN, values,
+                                          min_values=mv[0] if mv else None)
+                for key, values, *mv in cases[case]])
+            loop = [it.offerings.available().worst_launch_price(reqs)
+                    for it in catalog]
+            finite = sorted(w for w in loop if w < np.inf)
+            for max_price in (finite[len(finite) // 2], np.inf):
+                claim = _claim(root, kind, catalog)
+                kept, err = claim.remove_instance_types_by_price_and_min_values(
+                    reqs, max_price)
+                options = [it.name for it in claim.instance_type_options]
+                assert options == [it.name for it, w in zip(catalog, loop)
+                                   if w < max_price]
+                assert 0 < len(options) < len(catalog) or max_price == np.inf
+                assert (kept is None) == (err is not None)
+                assert kept is None or kept is claim
+                if kind == "host":
+                    assert claim._min_alloc is None
+                answers.append((case, max_price, options, err))
+        got[root] = answers
+    assert got[PORT] == got[JAX]
+    assert any(err for *_, err in got[PORT])
 
 
 def test_a_won_verdict_names_its_tally():

@@ -489,11 +489,10 @@ class ChurnEnv:
     both solves on a mesh."""
 
     def __init__(self, root: str, n_nodes=4, pods_per_node=2, catalog=None,
-                 mesh=None, pack_shards=0):
+                 mesh=None):
         k, w = pkg(root), warm_pkg(root)
         self.root, self.k, self.w = root, k, w
         self.mesh = mesh
-        self.pack_shards = pack_shards
         self.clock = w.clock.FakeClock()
         self.store = w.store.Store(self.clock)
         self.cluster = w.cluster.Cluster(self.store, self.clock)
@@ -575,7 +574,6 @@ class ChurnEnv:
 
     def scheduler(self, ps, unavailable=True, state_nodes=None, **kw):
         kw.setdefault("mesh", self.mesh)
-        kw.setdefault("pack_shards", self.pack_shards)
         return scheduler(
             self.root, [self.pool], {"default": self.catalog},
             state_nodes=(self.live_nodes() if state_nodes is None

@@ -16,7 +16,7 @@ from karpenter_tpu_torch.metrics.registry import GC_PAUSE_SECONDS
 from karpenter_tpu_torch.obs.tracer import TRACER
 
 import test_torch_support as support
-from test_torch_support import (PORT, mini_workload, nodepool, pod,
+from test_torch_support import (PORT, mini_workload, pod,
                                 underutilized_fleet)
 from test_torch_support import device_series_kept  # noqa: F401 (autouse)
 from test_torch_support import tracer_kept  # noqa: F401 (autouse)
@@ -126,8 +126,7 @@ def test_no_collection_is_charged_outside_a_trace_or_with_the_tracer_off():
 
 # -- the pack's existing-node fill ------------------------------------------
 
-@pytest.mark.parametrize("shards", [1, 4])
-def test_pack_span_carries_the_existing_fill_time(shards, monkeypatch):
+def test_pack_span_carries_the_existing_fill_time(monkeypatch):
     from karpenter_tpu_torch.ops import binpack
     calls = []
     fill = binpack.Packer._fill_existing
@@ -136,29 +135,12 @@ def test_pack_span_carries_the_existing_fill_time(shards, monkeypatch):
         calls.append(len(packer.exist_order))
         return fill(packer, *a, **kw)
     monkeypatch.setattr(binpack.Packer, "_fill_existing", counted)
-    if shards == 1:
-        ts, results, pods = _mini_solve()
-    else:
-        # the sharded pack runs only without existing nodes or limits
-        its = support.pkg(PORT).kwok.construct_instance_types()[:24]
-        pods = [pod(PORT, f"s-{i}", f"{100 * (1 + i % 5)}m",
-                    labels={"app": f"d{i % 9}"}) for i in range(180)]
-        ts = support.scheduler(PORT, [nodepool(PORT)], {"default": its},
-                               pack_shards=shards)
-        results = ts.solve(pods)
-        assert ts.fallback_reason == ""
+    ts, results, pods = _mini_solve()
     pack = _span(TRACER.last(), "pack")
-    if shards == 1:
-        assert any(en.pods for en in results.existing_nodes)
-        assert 0.0 < pack.attrs["existing_ms"] < pack.duration * 1e3
-        # the nodes whose cap a fill computed, at most all nodes a call
-        assert 0 < pack.attrs["existing_scanned"] <= sum(calls)
-    else:
-        # no existing node to fill: the span carries no fill time
-        assert pack.attrs["sharded"] == shards
-        assert "existing_ms" not in pack.attrs
-        assert "existing_scanned" not in pack.attrs
-        assert not results.existing_nodes and results.new_nodeclaims
+    assert any(en.pods for en in results.existing_nodes)
+    assert 0.0 < pack.attrs["existing_ms"] < pack.duration * 1e3
+    # the nodes whose cap a fill computed, at most all nodes a call
+    assert 0 < pack.attrs["existing_scanned"] <= sum(calls)
 
 
 def test_pack_is_not_timed_with_the_tracer_off():
