@@ -10,7 +10,8 @@ type) pair at once, exactly the quantities each leave-one-out row needs —
 each row just masks out one candidate's node and marks its reschedulable
 pods pending. The per-row decision (delete feasible / replaceable by one
 cheaper node / unconsolidatable) is then closed-form host array math over
-those shared tensors.
+those shared tensors, worked out for a group's rows at once, with the
+candidates' current prices as one vector.
 
 Exactness contract, mirroring the PrefixSimulator fallback contract:
 
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,7 +39,8 @@ from ..scheduling.requirement import IN, Requirement
 from .prefix import DisruptionSnapshot, SnapshotFallback, exist_fill_order
 from .types import Candidate
 
-_INF = math.inf
+# the fill threshold of a row no uninitialized managed node bounds
+_NO_ERR_NODE = np.iinfo(np.int64).max
 
 WIN = "win"          # a simulation probe is expected to yield a command
 REJECT = "reject"    # provably unconsolidatable: skip the probe entirely
@@ -64,6 +66,46 @@ def _tally(v: LooVerdict) -> str:
         raise ValueError("a WIN verdict names its tally: won_delete or "
                          "won_replace")
     return "needs_sim" if v.kind == NEEDS_SIM else "rejected"
+
+
+def current_prices(candidates: Sequence[Candidate]) -> Tuple[np.ndarray, int]:
+    """``Candidate.price()`` of every candidate as one float64 vector, NaN
+    where it is None, and the number of distinct lookups resolved.
+
+    A price reads only the instance type's offerings and the node's labels
+    on the keys those offerings' requirements name (a deprecated alias
+    normalises onto its key), so each distinct (type, those labels) is
+    resolved once, by the first candidate that has it. Prices move between
+    passes: nothing here outlives the call."""
+    out = np.full(len(candidates), math.nan)
+    keys_of: Dict[int, tuple] = {}
+    memo: Dict[tuple, float] = {}
+    for i, c in enumerate(candidates):
+        it = c.instance_type
+        if it is None:
+            continue
+        keys = keys_of.get(id(it))
+        if keys is None:
+            keys = keys_of[id(it)] = _offering_label_keys(it)
+        labels = c.state_node.labels()
+        key = (id(it), tuple(labels.get(k) for k in keys))
+        price = memo.get(key)
+        if price is None:
+            p = c.price()
+            price = memo[key] = math.nan if p is None else p
+        out[i] = price
+    return out, len(memo)
+
+
+def _offering_label_keys(it) -> tuple:
+    """The node label keys that decide which of ``it``'s offerings a
+    node's label requirements are compatible with."""
+    named = set()
+    for o in it.offerings:
+        named.update(o.requirements.keys())
+    named.update(alias for alias, key in api_labels.NORMALIZED_LABELS.items()
+                 if key in named)
+    return tuple(sorted(named))
 
 
 class _GroupView:
@@ -107,12 +149,18 @@ class LeaveOneOutEngine:
         from ..obs.tracer import TRACER
         with TRACER.span("disruption.loo",
                          candidates=len(self.candidates)) as sp:
+            # the candidates' current prices (NaN: no price) and the
+            # distinct lookups that resolved them
+            self.prices, self.price_keys = current_prices(self.candidates)
+            self._spot = np.array(
+                [c.capacity_type == api_labels.CAPACITY_TYPE_SPOT
+                 for c in self.candidates], dtype=bool)
             self._verdicts = self._classify()
             if TRACER.enabled:
                 counts = dict.fromkeys(TALLIES, 0)
                 for v in self._verdicts:
                     counts[_tally(v)] += 1
-                sp.set(**counts)
+                sp.set(price_keys=self.price_keys, **counts)
         self.stats["classified"] = sum(
             1 for v in self._verdicts if v.kind != NEEDS_SIM)
         self.stats["needs_sim"] = sum(
@@ -151,7 +199,6 @@ class LeaveOneOutEngine:
         if any(np_.spec.limits for np_ in snap.ts.nodepools):
             self._count_sim("limits", n)
             return sim  # subtractMax pessimism is order-dependent
-        t = enc.tensors
         state_nodes = snap.ts.state_nodes
         N = len(state_nodes)
         if N == 0:
@@ -166,8 +213,9 @@ class LeaveOneOutEngine:
         err = np.array([sn.managed() and not sn.initialized()
                         for sn in state_nodes], dtype=bool)
 
-        views: Dict[int, _GroupView] = {}
-        out: List[LooVerdict] = []
+        out: List[Optional[LooVerdict]] = [None] * n
+        # group -> its simple single-group rows as (candidate, pods, node)
+        rows: Dict[int, List[tuple]] = {}
         for i, c in enumerate(self.candidates):
             counts: Dict[int, int] = {}
             unknown = False
@@ -181,7 +229,7 @@ class LeaveOneOutEngine:
             if unknown or n_idx is None or len(counts) != 1:
                 self._count_sim("multi_group" if not unknown
                                 and n_idx is not None else "other")
-                out.append(LooVerdict(NEEDS_SIM))
+                out[i] = LooVerdict(NEEDS_SIM)
                 continue
             (g, k), = counts.items()
             if not simple[g]:
@@ -189,55 +237,118 @@ class LeaveOneOutEngine:
                 self._count_sim(
                     "topo" if grp.topo else
                     "ports" if grp.host_ports else "volumes")
-                out.append(LooVerdict(NEEDS_SIM))
+                out[i] = LooVerdict(NEEDS_SIM)
                 continue
-            view = views.get(g)
-            if view is None:
-                view = _GroupView(enc, g, order, pos_of, err)
-                views[g] = view
-            out.append(self._classify_row(c, g, k, n_idx, view))
+            rows.setdefault(g, []).append((i, k, n_idx))
+        for g, grp_rows in rows.items():
+            idx, k, n_idx = (np.array(col, dtype=np.int64)
+                             for col in zip(*grp_rows))
+            view = _GroupView(enc, g, order, pos_of, err)
+            for i, v in zip(idx.tolist(),
+                            self._classify_group(g, view, idx, k, n_idx)):
+                out[i] = v
         return out
 
-    def _classify_row(self, c: Candidate, g: int, k: int, n_idx: int,
-                      view: _GroupView) -> LooVerdict:
-        cap_c = int(view.cap[n_idx])
-        p_pos = int(view.pos_of[n_idx])
+    def _classify_group(self, g: int, view: _GroupView, idx: np.ndarray,
+                        k: np.ndarray, n_idx: np.ndarray) -> List[LooVerdict]:
+        """The verdicts of one simple group's rows (candidates ``idx``,
+        ``k`` pods of the group each, on exist columns ``n_idx``), worked
+        out over the group's rows at once."""
+        cap_c = view.cap[n_idx]
+        p_pos = view.pos_of[n_idx]
         total_i = view.total - cap_c
         # the greedy existing-node fill reaches an uninitialized managed
         # node (=> sim error => rejection) iff the demand exceeds the
         # capacity accumulated before the first such node in fill order,
         # with the candidate's own column removed
-        thr = _INF
+        thr = np.full(idx.size, _NO_ERR_NODE, dtype=np.int64)
         ep = view.err_pos
         if ep.size:
-            j = int(np.searchsorted(ep, p_pos))
-            if j > 0:
-                thr = float(view.cum[ep[0]])
-            jj = j + 1 if j < ep.size and ep[j] == p_pos else j
-            if jj < ep.size:
-                thr = min(thr, float(view.cum[ep[jj]] - cap_c))
-        if k <= thr and k <= total_i:
-            # delete: zero new nodes, no errors
-            return LooVerdict(WIN, tally="won_delete")
-        if k > thr:
-            return LooVerdict(REJECT, (
-                "not all pods would schedule, would schedule against "
-                "an uninitialized node"))
-        # remainder opens fresh capacity: first viable template takes all
-        r = k - total_i
+            last = ep.size - 1
+            j = np.searchsorted(ep, p_pos)
+            thr = np.where(j > 0, view.cum[ep[0]], thr)
+            jj = j + ((j <= last) & (ep[np.minimum(j, last)] == p_pos))
+            thr = np.where(jj <= last, np.minimum(
+                thr, view.cum[ep[np.minimum(jj, last)]] - cap_c), thr)
+        out = np.empty(idx.size, dtype=object)
+        uninit = k > thr
+        # delete: zero new nodes, no errors
+        out[~uninit & (k <= total_i)] = LooVerdict(WIN, tally="won_delete")
+        out[uninit] = LooVerdict(REJECT, (
+            "not all pods would schedule, would schedule against "
+            "an uninitialized node"))
+        rest = np.nonzero(~uninit & (k > total_i))[0]
+        if rest.size:
+            self._classify_remainders(g, idx[rest], k[rest] - total_i[rest],
+                                      out, rest)
+        return out.tolist()
+
+    def _classify_remainders(self, g: int, idx: np.ndarray, r: np.ndarray,
+                             out: np.ndarray, at: np.ndarray) -> None:
+        """Rows whose remainder ``r`` opens fresh capacity: the first
+        viable template takes all of it (consolidation.go:176-302 closed
+        form). Writes each row's verdict into ``out[at]``."""
+        from .methods import MIN_SPOT_TO_SPOT_INSTANCE_TYPES
         t = self.enc.tensors
         m0 = next((m for m in range(len(self.enc.templates))
                    if t.it_ok[g, m].any()), None)
         if m0 is None:
-            return LooVerdict(REJECT, (
+            out[at] = LooVerdict(REJECT, (
                 "not all pods would schedule, no instance type satisfied "
                 "the pod"))
-        per = int(t.ppn[g, m0][t.it_ok[g, m0]].max())
+            return
+        it_ok, ppn = t.it_ok[g, m0], t.ppn[g, m0]
+        per = int(ppn[it_ok].max())
         claims = -(-r // per)
-        if claims != 1:
-            return LooVerdict(REJECT, (
-                f"Can't remove without creating {claims} candidates"))
-        return self._classify_replacement(c, g, m0, r)
+        for n_claims in np.unique(claims[claims != 1]).tolist():
+            out[at[claims == n_claims]] = LooVerdict(REJECT, (
+                f"Can't remove without creating {n_claims} candidates"))
+        one = claims == 1
+        idx, r, at = idx[one], r[one], at[one]
+        price = self.prices[idx]
+        unpriced = np.isnan(price)
+        out[at[unpriced]] = LooVerdict(REJECT)
+        if unpriced.all():
+            return
+        ct_req = self._combined_reqs(g, m0, False).get(
+            api_labels.CAPACITY_TYPE_LABEL_KEY)
+        spot = ~unpriced & self._spot[idx] \
+            & ct_req.has(api_labels.CAPACITY_TYPE_SPOT)
+        if spot.any() and not self.spot_to_spot_enabled:
+            out[at[spot]] = LooVerdict(REJECT, (
+                "SpotToSpotConsolidation is disabled, can't replace a "
+                "spot node with a spot node"))
+        elif spot.any():
+            # per distinct remainder, the replacement's options sorted by
+            # worst price: the options cheaper than a row's price are the
+            # ones before its left insertion point
+            worst = self._worst_prices(g, m0, True)
+            cheaper = np.zeros(r.size, dtype=np.int64)
+            for rv in np.unique(r[spot]).tolist():
+                rows = spot & (r == rv)
+                options = np.sort(worst[it_ok & (ppn >= rv)])
+                cheaper[rows] = np.searchsorted(options, price[rows],
+                                                side="left")
+            floor = cheaper < MIN_SPOT_TO_SPOT_INSTANCE_TYPES
+            out[at[spot & ~floor]] = LooVerdict(WIN, tally="won_replace")
+            for n_cheaper in np.unique(cheaper[spot & floor]).tolist():
+                out[at[spot & (cheaper == n_cheaper)]] = LooVerdict(REJECT, (
+                    "SpotToSpotConsolidation requires "
+                    f"{MIN_SPOT_TO_SPOT_INSTANCE_TYPES} cheaper instance "
+                    "type options than the current candidate to "
+                    f"consolidate, got {n_cheaper}"), tally="spot_floor")
+        other = ~unpriced & ~spot
+        if other.any():
+            worst = self._worst_prices(g, m0, False)
+            won = np.zeros(r.size, dtype=bool)
+            for rv in np.unique(r[other]).tolist():
+                rows = other & (r == rv)
+                options = worst[it_ok & (ppn >= rv)]
+                if options.size:
+                    won[rows] = options.min() < price[rows]
+            out[at[other & won]] = LooVerdict(WIN, tally="won_replace")
+            out[at[other & ~won]] = LooVerdict(
+                REJECT, "Can't replace with a cheaper node")
 
     # -- replacement pricing (consolidation.go:176-302 closed form) ---------
 
@@ -282,36 +393,6 @@ class LeaveOneOutEngine:
                 sp.set(vectors=prices.built - built, types=worst.size)
             self._worst_memo[key] = worst
         return worst
-
-    def _classify_replacement(self, c: Candidate, g: int, m0: int,
-                              r: int) -> LooVerdict:
-        from .methods import MIN_SPOT_TO_SPOT_INSTANCE_TYPES
-        t = self.enc.tensors
-        it_set = t.it_ok[g, m0] & (t.ppn[g, m0] >= r)
-        price = c.price()
-        if price is None:
-            return LooVerdict(REJECT)
-        base_reqs = self._combined_reqs(g, m0, False)
-        ct_req = base_reqs.get(api_labels.CAPACITY_TYPE_LABEL_KEY)
-        if c.capacity_type == api_labels.CAPACITY_TYPE_SPOT \
-                and ct_req.has(api_labels.CAPACITY_TYPE_SPOT):
-            if not self.spot_to_spot_enabled:
-                return LooVerdict(REJECT, (
-                    "SpotToSpotConsolidation is disabled, can't replace a "
-                    "spot node with a spot node"))
-            worst = self._worst_prices(g, m0, True)
-            cheaper = int((it_set & (worst < price)).sum())
-            if cheaper < MIN_SPOT_TO_SPOT_INSTANCE_TYPES:
-                return LooVerdict(REJECT, (
-                    "SpotToSpotConsolidation requires "
-                    f"{MIN_SPOT_TO_SPOT_INSTANCE_TYPES} cheaper instance "
-                    "type options than the current candidate to "
-                    f"consolidate, got {cheaper}"), tally="spot_floor")
-            return LooVerdict(WIN, tally="won_replace")
-        worst = self._worst_prices(g, m0, False)
-        if not bool((it_set & (worst < price)).any()):
-            return LooVerdict(REJECT, "Can't replace with a cheaper node")
-        return LooVerdict(WIN, tally="won_replace")
 
 
 class MultiNodeLooEngine:

@@ -11,15 +11,17 @@ and of the cheapest type under p0 that its pods fill. Commands are
 compared by name: decision, candidate, replacement options in order and
 the simulated placements."""
 
+import dataclasses
 import importlib
 import json
+import random
 from pathlib import Path
 
 import numpy as np
 import pytest
 
-from test_torch_support import (JAX, PORT, ROOTS, LiveEnv, live_pkg, nodepool,
-                                pkg, pod)
+from test_torch_support import (JAX, PORT, ROOTS, LiveEnv, MinValuesReq,
+                                live_pkg, nodepool, pkg, pod)
 from test_torch_support import device_series_kept, tracer_kept  # noqa: F401
 
 from benchmark import spot_spec
@@ -285,7 +287,8 @@ def test_a_won_verdict_names_its_tally():
 def test_groups_that_allow_the_same_offerings_share_one_vector():
     """Every deployment of the spot fleet allows the same offerings: one
     vector serves them all, and the winner's price filter builds one of
-    its options."""
+    its options. The classifier resolves each distinct price lookup (a
+    type and the node's zone and capacity type) once, and counts them."""
     from karpenter_tpu_torch.obs.tracer import TRACER
     env, _, _ = spot_env(PORT, SEEDS[0])
     TRACER.enabled = True
@@ -311,3 +314,206 @@ def test_groups_that_allow_the_same_offerings_share_one_vector():
         [c for c in cands if c.reschedulable_pods])
     assert counts["won_replace"] >= 1 and counts["spot_floor"] >= 1
     assert counts["won_delete"] == counts["needs_sim"] == 0
+    lookups = {(c.instance_type.name, c.zone, c.capacity_type)
+               for c in cands if c.reschedulable_pods}
+    assert loo.attrs["price_keys"] == len(lookups) <= loo.attrs["candidates"]
+
+
+# -- the classifier's verdicts and the candidates' price vector --------------
+
+def _engines(root: str, monkeypatch) -> list:
+    """Every LeaveOneOutEngine ``root``'s single-node pass builds. The JAX
+    package's verdicts carry no tally, so its engine notes the candidates
+    whose verdict the replacement pricing gave: a WIN there replaces, any
+    other WIN deletes."""
+    batch = importlib.import_module(f"{root}.disruption.batch")
+    built = []
+
+    class Engine(batch.LeaveOneOutEngine):
+        def __init__(self, *args, **kwargs):
+            self.replaced = set()
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+        if root == JAX:
+            def _classify_replacement(self, c, g, m0, r):
+                self.replaced.add(c.name)
+                return super()._classify_replacement(c, g, m0, r)
+
+    monkeypatch.setattr(batch, "LeaveOneOutEngine", Engine)
+    return built
+
+
+def _rows(engine) -> list:
+    """(kind, reason, tally) of every candidate, in candidate order."""
+    out = []
+    for i, c in enumerate(engine.candidates):
+        v = engine.verdict(i)
+        if hasattr(v, "tally"):
+            tally = v.tally or ("needs_sim" if v.kind == "sim"
+                                else "rejected")
+        elif v.kind == "win":
+            tally = "won_replace" if c.name in engine.replaced \
+                else "won_delete"
+        elif v.kind == "sim":
+            tally = "needs_sim"
+        elif v.reason.startswith("SpotToSpotConsolidation requires"):
+            tally = "spot_floor"
+        else:
+            tally = "rejected"
+        out.append((v.kind, v.reason, tally))
+    return out
+
+
+def _fuzz_rows(root: str, seed: int, monkeypatch) -> list:
+    from test_torch_disruption import fuzz_cluster, run_single_node
+    built = _engines(root, monkeypatch)
+    env, spot_to_spot = fuzz_cluster(seed, root)
+    run_single_node(env, spot_to_spot, batched=True)
+    return [_rows(e) for e in built]
+
+
+def _spot_rows(root: str, seed: int, monkeypatch) -> list:
+    built = _engines(root, monkeypatch)
+    env, _, _ = spot_env(root, seed)
+    single_pass(env)
+    return [_rows(e) for e in built]
+
+
+FLEETS = [("spot", seed) for seed in SEEDS] + \
+    [("fuzz", seed) for seed in range(7000, 7012)] + \
+    [("priced", seed) for seed in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("fleet,seed", FLEETS)
+def test_verdicts_match_the_jax_engine_row_for_row(fleet, seed, monkeypatch):
+    """The port's group-at-a-time verdicts equal the JAX package's
+    row-at-a-time engine's: kind, reason (the cheaper-type count included)
+    and tally, candidate by candidate."""
+    rows = {"spot": _spot_rows, "fuzz": _fuzz_rows,
+            "priced": _priced_rows}[fleet]
+    got = {root: rows(root, seed, monkeypatch) for root in ROOTS}
+    assert got[PORT] == got[JAX]
+    if fleet == "spot":
+        (verdicts,) = got[PORT]
+        tallies = {tally for _, _, tally in verdicts}
+        assert {"won_replace", "spot_floor"} <= tallies
+
+
+def test_fleets_reach_every_branch(monkeypatch):
+    """The fuzz seeds 7000-7011 and the priced fleets reach every verdict
+    the group arithmetic gives."""
+    reasons = set()
+    for seed in range(7000, 7012):
+        for verdicts in _fuzz_rows(PORT, seed, monkeypatch):
+            reasons.update((kind, reason.split(",")[0], tally)
+                           for kind, reason, tally in verdicts)
+    for seed in (1, 2, 3):
+        for verdicts in _priced_rows(PORT, seed, monkeypatch):
+            reasons.update((kind, reason.split(",")[0], tally)
+                           for kind, reason, tally in verdicts)
+    floor = "SpotToSpotConsolidation requires 15 cheaper instance type " \
+        "options than the current candidate to consolidate"
+    assert {("win", "", "won_delete"), ("win", "", "won_replace"),
+            ("sim", "", "needs_sim"), ("reject", "", "rejected"),
+            ("reject", "not all pods would schedule", "rejected"),
+            ("reject", "Can't replace with a cheaper node", "rejected"),
+            ("reject", "Can't remove without creating 2 candidates",
+             "rejected"),
+            ("reject", "SpotToSpotConsolidation is disabled", "rejected"),
+            ("reject", floor, "spot_floor"),
+            } <= reasons, sorted(reasons)
+
+
+def _priced_env(seed: int, root: str = PORT):
+    """Nodes of ``_catalog``'s types (every seventh offering unavailable,
+    zone f on every third type alone) in five zones, spot and on-demand,
+    each 80% full by the cpu of one pod, which no other node has room for:
+    every row prices a replacement. Node ``pr-00`` sits in zone f on a
+    type without it, ``pr-01`` carries a beta zone label that disagrees
+    with its zone (its twin ``pr-03`` has none), and ``pr-02``, of the
+    largest type, has the room of two such pods and holds two, which no
+    type holds together. ``pr-04`` (1,350m) holds one 650m pod and room for
+    one more, which only the uninitialized ``pr-24`` also has. On odd seeds the pool allows on-demand alone, so
+    a spot candidate is priced against on-demand replacements."""
+    rng = random.Random(seed)
+    its = _catalog(root)
+    env = LiveEnv(root, its, spot_to_spot=True)
+    env.pool(requirements=[MinValuesReq(
+        env.k.labels.CAPACITY_TYPE_LABEL_KEY, "In", ["on-demand"])]
+        if seed % 2 else ())
+    zones = [f"test-zone-{z}" for z in "abcde"]
+    for i in range(24):
+        it = its[rng.randrange(len(its))]
+        labels, zone = {}, rng.choice(zones)
+        capacity_type = rng.choice(("spot", "on-demand"))
+        if i == 0:
+            it, zone = its[1], "test-zone-f"
+        elif i in (1, 3):
+            it, zone, capacity_type = its[4], "test-zone-a", "spot"
+            if i == 1:
+                labels["failure-domain.beta.kubernetes.io/zone"] = \
+                    "test-zone-b"
+        elif i == 2:
+            it = max(its, key=lambda t: t.allocatable()["cpu"])
+        alloc = dict(it.allocatable())
+        cpu = 650 if i == 4 else int(alloc["cpu"] * 0.8)
+        if i == 2:
+            alloc["cpu"] = 2 * cpu
+        elif i == 4:
+            alloc["cpu"] = 1350
+        name = f"pr-{i:02d}"
+        env.node(name, it, zone=zone, alloc=alloc, labels=labels,
+                 capacity_type=capacity_type)
+        for j in range(2 if i == 2 else 1):
+            env.bind(name, f"pr-pod-{i}-{j}", cpu=f"{cpu}m")
+    env.node("pr-24", its[0], initialized=False, consolidatable=False,
+             alloc={"cpu": "700m", "memory": "16Gi", "pods": "110"})
+    env.clock.step(600)
+    return env
+
+
+def _priced_rows(root: str, seed: int, monkeypatch) -> list:
+    built = _engines(root, monkeypatch)
+    env = _priced_env(seed, root)
+    single_pass(env)
+    return [_rows(e) for e in built]
+
+
+@pytest.mark.parametrize("seed", (1, 2, 3))
+def test_price_vector_is_candidate_price(seed):
+    """The engine's price vector equals Candidate.price() candidate by
+    candidate, float for float and None where None: on-demand and spot
+    nodes in several zones, a node whose labels match no offering, one
+    whose zone labels disagree, and a candidate with no instance type."""
+    from karpenter_tpu_torch.disruption import batch
+    env = _priced_env(seed)
+    lv = env.lv
+    m = lv.methods.SingleNodeConsolidation(
+        env.cluster, env.provisioner, spot_to_spot_enabled=True,
+        clock=env.clock)
+    snap = lv.prefix.DisruptionSnapshot(env.cluster, env.provisioner)
+    cands = lv.helpers.get_candidates(env.cluster, env.provisioner,
+                                      m.should_disrupt, context=snap)
+    engine = batch.LeaveOneOutEngine(snap, cands, True)
+
+    def as_list(vector):
+        return [None if np.isnan(p) else float(p) for p in vector]
+
+    want = [c.price() for c in cands]
+    assert as_list(engine.prices) == want
+    by_name = dict(zip((c.name for c in cands), want))
+    assert by_name["pr-00"] is None and by_name["pr-01"] is None
+    assert by_name["pr-03"] is not None
+    assert {c.capacity_type for c, p in zip(cands, want) if p} == \
+        {"spot", "on-demand"}
+    assert len({c.zone for c, p in zip(cands, want) if p}) >= 3
+    # the memo keys a lookup by the labels the offerings read: a candidate
+    # without an instance type is never looked up
+    odd = cands + [dataclasses.replace(cands[2], instance_type=None)]
+    vector, keys = batch.current_prices(odd)
+    assert as_list(vector) == want + [None]
+    assert keys == engine.price_keys == len(
+        {(c.instance_type.name, c.zone, c.capacity_type,
+          c.state_node.labels().get("failure-domain.beta.kubernetes.io/zone"))
+         for c in cands})
