@@ -191,13 +191,13 @@ class ProblemState:
 
     def node_rows(self, vocab, zone_key: int, state_nodes, daemonset_pods
                   ) -> tuple:
-        """(exist_enc, exist_avail, exist_zone, taint_lists, exist_token)
+        """(exist_enc, exist_avail, exist_zone, taints, exist_token)
         with the node axis pow2-padded — byte-identical to what
         build_problem's cold path constructs, with only dirty rows
         re-encoded (once, on the plane, for every subscriber).
-        taint_lists covers the REAL nodes only."""
+        taints (tensor_scheduler.NodeTaints) covers the REAL nodes only."""
         ds_token = self._daemon_token(daemonset_pods)
-        (exist_enc, exist_avail, exist_zone, taint_lists, exist_token,
+        (exist_enc, exist_avail, exist_zone, taints, exist_token,
          reencoded, shard_tokens, shard_dirty) = self.plane.node_rows(
             vocab, zone_key, state_nodes, daemonset_pods, ds_token,
             self._attach_key[1], self.subscriber)
@@ -206,7 +206,7 @@ class ProblemState:
         self.exist_shard_tokens = shard_tokens
         if shard_dirty is not None:
             self.last["shard_dirty"] = shard_dirty
-        return exist_enc, exist_avail, exist_zone, taint_lists, exist_token
+        return exist_enc, exist_avail, exist_zone, taints, exist_token
 
     # -- group rows ----------------------------------------------------------
 

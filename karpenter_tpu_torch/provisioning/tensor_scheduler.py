@@ -437,7 +437,8 @@ class TensorScheduler:
         rec = self.flight_recorder
         # roots its own PassTrace when no pass span is active (bench, sims);
         # nests under a pass loop otherwise
-        with TRACER.span("solve", pods=len(pods)) as sp:
+        with TRACER.span("solve", pods=len(pods),
+                         nodepools=len(self.nodepools)) as sp:
             started = time.perf_counter() if rec is not None else 0.0
             with no_gc():
                 results = self._solve(pods, prebuckets)
@@ -855,11 +856,11 @@ class TensorScheduler:
             # reused while the node set is unchanged
             with TRACER.span("encode.nodes",
                              nodes=len(self.state_nodes)) as nsp:
-                (exist_enc, exist_avail, exist_zone, taint_lists,
+                (exist_enc, exist_avail, exist_zone, taints,
                  exist_token) = ps.node_rows(vocab, zone_key,
                                              self.state_nodes,
                                              self.daemonset_pods)
-                tol_exist = _tol_exist_matrix(groups, taint_lists,
+                tol_exist = _tol_exist_matrix(groups, taints,
                                               exist_enc.mask.shape[0])
                 nsp.set(dirty=ps.last["node_rows_reencoded"])
                 sd = ps.last.get("shard_dirty")
@@ -929,7 +930,7 @@ class TensorScheduler:
             N = len(self.state_nodes)
             # bucket the node-batch axis: padded rows have undefined masks
             # and zero capacity, so they are never packable (exist_cap < 1)
-            (exist_enc, exist_avail, exist_zone, taint_lists,
+            (exist_enc, exist_avail, exist_zone, taints,
              per_node) = encode_node_rows(
                 vocab, zone_key, self.state_nodes, self.daemonset_pods,
                 _pow2_bucket(N, 16), self._label_table())
@@ -937,14 +938,13 @@ class TensorScheduler:
             # the memo holds the vocab itself so its id() can never be
             # recycled by a new object while the entry is alive
             self._exist_memo[id(vocab)] = (vocab, exist_enc, exist_avail,
-                                           exist_zone, taint_lists)
+                                           exist_zone, taints)
         else:
             nsp.set(columnar=0, per_node=0)
-            _, exist_enc, exist_avail, exist_zone, taint_lists = memo
+            _, exist_enc, exist_avail, exist_zone, taints = memo
             exist_enc = enc.copy_encoded(exist_enc)
             exist_avail, exist_zone = exist_avail.copy(), exist_zone.copy()
-        tol_exist = _tol_exist_matrix(groups, taint_lists,
-                                      exist_zone.shape[0])
+        tol_exist = _tol_exist_matrix(groups, taints, exist_zone.shape[0])
         return exist_enc, exist_avail, exist_zone, tol_exist
 
     def _label_table(self) -> enc.NodeLabelTable:
@@ -1554,33 +1554,64 @@ def pad_exist_counts(problem, exist_counts: np.ndarray) -> np.ndarray:
     return exist_counts
 
 
-def _tol_exist_matrix(groups, taint_lists, total_cols: int) -> np.ndarray:
+class NodeTaints:
+    """The state nodes' taints, grouped by distinct set: ``lists`` holds
+    each node's own taint list, ``sets`` each distinct non-empty set once
+    (as the first node that carries it lists it) and ``codes`` [N] each
+    node's set, 0 for no taints and d + 1 for ``sets[d]``. A set is the
+    multiset of (key, value, effect): ``tolerates`` ignores order."""
+
+    def __init__(self, lists: list):
+        self.lists = lists
+        self.sets: list = []
+        self.codes = np.zeros(len(lists), dtype=np.int32)
+        by_set: dict = {}
+        for i, nt in enumerate(lists):
+            if not nt:
+                continue
+            key = tuple(sorted((t.key, t.value, t.effect) for t in nt))
+            code = by_set.get(key)
+            if code is None:
+                self.sets.append(nt)
+                code = by_set[key] = len(self.sets)
+            self.codes[i] = code
+
+
+def _tol_exist_matrix(groups, taints: NodeTaints,
+                      total_cols: int) -> np.ndarray:
     """[G, total_cols] group x existing-node toleration matrix — THE one
     construction both the cold and delta encode paths share (a divergence
     would break the delta path's bit-identical contract). True = the
-    group's probe pod tolerates node i's taints (tolerates() returns the
-    error list, so untainted nodes default True); columns past
-    len(taint_lists) are pow2 padding and stay False (never packable)."""
-    G = len(groups)
+    group's probe pod tolerates node i's taints: one ``tolerates`` call a
+    group and distinct taint set, gathered to the nodes by their codes
+    (untainted nodes True); columns past the real nodes are pow2 padding
+    and stay False (never packable)."""
+    G, N = len(groups), len(taints.codes)
     out = np.zeros((G, total_cols), dtype=bool)
-    out[:, :len(taint_lists)] = True
-    for i, nt in enumerate(taint_lists):
-        if not nt:
-            continue
-        for gi, g in enumerate(groups):
-            out[gi, i] = not scheduling_taints.tolerates(nt, g.pods[0])
+    with TRACER.span("encode.taints") as sp:
+        if taints.sets:
+            ok = np.ones((G, len(taints.sets) + 1), dtype=bool)
+            for d, nt in enumerate(taints.sets, start=1):
+                for gi, g in enumerate(groups):
+                    ok[gi, d] = not scheduling_taints.tolerates(nt, g.pods[0])
+            out[:, :N] = ok[:, taints.codes]
+        else:
+            out[:, :N] = True
+        sp.set(nodes=int(np.count_nonzero(taints.codes)),
+               taint_sets=len(taints.sets), checks=G * len(taints.sets))
     return out
 
 
 def encode_node_rows(vocab, zone_key: int, state_nodes, daemonset_pods,
                      total: int, table=None) -> tuple:
-    """(exist_enc, exist_avail, exist_zone, taint_lists, per_node): the
+    """(exist_enc, exist_avail, exist_zone, taints, per_node): the
     state nodes' rows padded to ``total`` — THE one construction of the
     cold path and the plane's dirty rows (state/plane.py), so the two stay
     byte-identical. The requirement rows come from the nodes' label table
     (``table``, built here when not given); only the daemonset overhead
     takes a per-node step, and only with daemonset pods to place:
-    ``per_node`` counts those nodes. taint_lists covers the real nodes."""
+    ``per_node`` counts those nodes. ``taints`` (NodeTaints) covers the
+    real nodes."""
     if table is None:
         table = enc.NodeLabelTable(state_nodes)
     exist_enc = enc.encode_node_labels(vocab, table, total)
@@ -1593,9 +1624,9 @@ def encode_node_rows(vocab, zone_key: int, state_nodes, daemonset_pods,
     vi = vocab.value_idx[zone_key]
     exist_zone = np.full(total, -1, dtype=np.int32)
     exist_zone[:table.n] = [vi.get(z, -1) for z in table.zones]
-    taint_lists = [sn.taints() for sn in state_nodes]
+    taints = NodeTaints([sn.taints() for sn in state_nodes])
     per_node = len(state_nodes) if daemonset_pods else 0
-    return exist_enc, exist_avail, exist_zone, taint_lists, per_node
+    return exist_enc, exist_avail, exist_zone, taints, per_node
 
 
 def _node_remaining_daemons(sn, daemonset_pods) -> dict:

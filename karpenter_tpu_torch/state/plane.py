@@ -265,14 +265,14 @@ class EncodePlane:
         reuse exactly this path, so a shadow compare is a true cold
         replay."""
         from ..provisioning.tensor_scheduler import encode_node_rows
-        e, avail, zones, taint_lists, _ = encode_node_rows(
+        e, avail, zones, taints, _ = encode_node_rows(
             vocab, zone_key, nodes, daemonset_pods, len(nodes))
         return [(rev,
                  enc.EncodedRequirements(
                      mask=e.mask[j], defined=e.defined[j],
                      complement=e.complement[j], exempt=e.exempt[j],
                      gt=e.gt[j], lt=e.lt[j]),
-                 avail[j], int(zones[j]), taint_lists[j])
+                 avail[j], int(zones[j]), taints.lists[j])
                 for j, rev in enumerate(revs)]
 
     def _quarantine_node_layer(self, cache: _NodeCache, auditor) -> None:
@@ -287,7 +287,7 @@ class EncodePlane:
     def node_rows(self, vocab, zone_key: int, state_nodes, daemonset_pods,
                   ds_token: tuple, exist_shards: int, subscriber: str
                   ) -> tuple:
-        """(exist_enc, exist_avail, exist_zone, taint_lists, exist_token,
+        """(exist_enc, exist_avail, exist_zone, taints, exist_token,
         reencoded, shard_tokens, shard_dirty) — byte-identical to what
         build_problem's cold path constructs, with only dirty rows
         re-encoded ONCE for every subscriber. With an auditor attached,
@@ -296,7 +296,7 @@ class EncodePlane:
         serve; a mismatch quarantines the layer and the outer loop
         restarts ONCE over the now-cold caches — the second attempt
         re-encodes everything, so it cannot quarantine again."""
-        from ..provisioning.tensor_scheduler import _pow2_bucket
+        from ..provisioning.tensor_scheduler import NodeTaints, _pow2_bucket
         auditor = self.auditor
         cache = self._node_cache(vocab, ds_token)
         for _attempt in (0, 1):
@@ -437,7 +437,7 @@ class EncodePlane:
             return stack + (exist_token, reencoded, shard_tokens,
                             shard_dirty)
         encs = [fresh[k][1] for k in keys]
-        taint_lists = [fresh[k][4] for k in keys]
+        taints = NodeTaints([fresh[k][4] for k in keys])
         if Np > N:
             zero = enc.encode_requirements(vocab, Requirements())
             encs = encs + [zero] * (Np - N)
@@ -449,7 +449,7 @@ class EncodePlane:
         zones = np.array([fresh[k][3] for k in keys], dtype=np.int32)
         exist_zone = np.concatenate([zones, np.full(Np - N, -1, np.int32)]) \
             if Np > N else zones
-        stack = (exist_enc, exist_avail, exist_zone, taint_lists)
+        stack = (exist_enc, exist_avail, exist_zone, taints)
         cache.stacks[exist_token] = stack
         while len(cache.stacks) > MAX_STACKS:
             cache.stacks.popitem(last=False)

@@ -52,7 +52,8 @@ DEVICE_OWN = (
 )
 DEVICE_OWN_LABELS = ('phase="compile"', 'phase="device.execute"')
 #: samples of the stage spans only the port's tracer has
-PORT_OWN_LABELS = ('phase="partition"', 'phase="pack.inputs"')
+PORT_OWN_LABELS = ('phase="partition"', 'phase="pack.inputs"',
+                   'phase="encode.taints"')
 
 
 def mod(root: str, name: str):

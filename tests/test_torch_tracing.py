@@ -2,8 +2,10 @@
 the CPU: the solve's ``partition`` span, ``get_candidates``'s
 ``disruption.candidates``, the collector's pauses on the trace's root, the
 pack's inputs and its existing-node fill time and scan on the ``pack``
-span, the existing-node encode's row counts on ``encode.nodes``, and the
-spans as ``user_annotation`` ranges of a ``torch.profiler`` session."""
+span, the existing-node encode's row counts on ``encode.nodes``, the
+toleration matrix's counts on ``encode.taints`` and the NodePools on the
+root, and the spans as ``user_annotation`` ranges of a ``torch.profiler``
+session."""
 
 import gc
 import json
@@ -199,6 +201,53 @@ def test_a_memo_hit_of_the_node_encode_builds_no_row():
     assert second.exist_enc.mask is not first.exist_enc.mask
     assert (second.exist_enc.mask == first.exist_enc.mask).all()
     assert (second.exist_avail == first.exist_avail).all()
+
+
+# -- the existing-node toleration matrix -------------------------------------
+
+def _tainted_solve(taints_of):
+    """A solve of mini_workload's pods (two of its six deployments
+    tolerating ``dedicated``) against its nodes and ten more, each node
+    with the taints ``taints_of(i)``."""
+    k = support.pkg(PORT)
+    o = k.objects
+    pools, its, nodes, pods = mini_workload(PORT)
+    nodes = nodes + [support.state_node(PORT, f"extra-{i}", "default", "4",
+                                        "8Gi", True) for i in range(10)]
+    for i, sn in enumerate(nodes):
+        sn.node.spec.taints = [o.Taint(key=key, value=v, effect="NoSchedule")
+                               for key, v in taints_of(i)]
+    for p in pods:
+        if p.metadata.labels["app"] in ("deploy-0", "deploy-3"):
+            p.spec.tolerations = [o.Toleration(key="dedicated",
+                                               operator="Exists")]
+    ts = support.scheduler(PORT, pools, its, state_nodes=nodes)
+    ts.solve(pods)
+    assert ts.fallback_reason == ""
+    return TRACER.last(), nodes, pools
+
+
+def test_taint_span_counts_tainted_nodes_distinct_sets_and_checks():
+    # three sets, one of them in two orders: (a), (b), (a, b) = (b, a)
+    sets = ([], [("dedicated", "a")], [("dedicated", "b")],
+            [("dedicated", "a"), ("dedicated", "b")],
+            [("dedicated", "b"), ("dedicated", "a")])
+    trace, nodes, pools = _tainted_solve(lambda i: sets[i % len(sets)])
+    spans = [s for s in trace.spans if s.name == "encode.taints"]
+    assert len(spans) == 1
+    sp = spans[0]
+    assert sp.parent == _span(trace, "encode.nodes").index
+    groups = _span(trace, "partition").attrs["groups"]
+    tainted = sum(1 for i in range(len(nodes)) if sets[i % len(sets)])
+    assert sp.attrs == {"nodes": tainted, "taint_sets": 3,
+                        "checks": groups * 3}
+    assert trace.root.attrs["nodepools"] == len(pools) == 2
+
+
+def test_taint_span_of_an_untainted_fleet_makes_no_check():
+    trace, _, _ = _tainted_solve(lambda i: [])
+    sp = _span(trace, "encode.taints")
+    assert sp.attrs == {"nodes": 0, "taint_sets": 0, "checks": 0}
 
 
 # -- the profiler's ranges ---------------------------------------------------
